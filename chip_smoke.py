@@ -7,33 +7,56 @@ CUDA toolkit (nvcc):
 
 Phases, each of which raises on failure (the script then exits non-zero):
 
-1. build   -- compile every kernel of the port from csrc/ with nvcc (sm_90a).
-2. kernel  -- hold the flash-attention forward kernel against its plain
-              PyTorch version (out and lse) at the main path's shapes, time
-              it beside its bound, the plain version and one PyTorch call
-              computing the same function (the yardstick, never used by
-              the port).
-3. forward -- the long-sequence GPT of bench.py (vocab 32000, d_model 2048,
-              16 heads of 128, 12 layers, d_ff 8192, max_seq 4096, bf16 on
-              fp32 params, random weights from --seed) at B=2, T=4096: one
-              kernel launch per layer, finite logits that agree with the
-              plain-attention `prefill` on the same tokens.
-4. serve   -- `generate` answers 4 left-padded requests of 128..1024
-              tokens with 64 greedy tokens each; the first tokens agree
-              with the forward's argmax on each unpadded prompt.
-5. profile -- device time by kernel (torch.profiler) of one forward and of
-              8 decode steps, against the host clock.
+1. build    -- compile every kernel of the port from csrc/ with nvcc
+               (sm_90a), printing each variant's registers and spills.
+2. kernel   -- hold the flash-attention forward kernel against its plain
+               PyTorch version (out and lse) at the main path's shapes, time
+               it beside its bound, the plain version and one PyTorch call
+               computing the same function (the yardstick, never used by
+               the port).
+3. forward  -- the long-sequence GPT of bench.py (vocab 32000, d_model 2048,
+               16 heads of 128, 12 layers, d_ff 8192, max_seq 4096, bf16 on
+               fp32 params, random weights from --seed) at B=2, T=4096: one
+               kernel launch per layer, finite logits that agree with the
+               plain-attention `prefill` on the same tokens.
+4. serve    -- `generate` answers 4 left-padded requests of 128..1024
+               tokens with 64 greedy tokens each; the first tokens agree
+               with the forward's argmax on each unpadded prompt.
+5. backward -- hold the dq and dk/dv kernels (and the forward whose out
+               and lse they take) against their plain versions, one batch
+               slice at a time (bit-identical across two calls), at the
+               training path's shape (8, 16, 4096, 128) and four others,
+               and time them there beside their bounds, the plain versions
+               and the backward of F.scaled_dot_product_attention (the
+               yardstick); autograd through flash_attention launches the
+               kernels for equal and unequal blocks alike.
+6. train    -- the same GPT with remat="full", trained with the default
+               AdamW at 3e-4 for 1 + 5 steps at B=8, T=4096 on one fixed
+               batch: finite, falling loss, and per step exactly 2 forward
+               launches (one in the remat re-run), 1 dq and 1 dk/dv launch
+               per layer; ms per step, tokens/s, MFU.
+7. gradcheck -- at B=1, T=4096 on the trained weights: the kernel path's
+               loss and gradients against fp32 plain attention, no further
+               off than bf16 plain attention is; loss_chunk=1024 against
+               the full-logits loss; remat "ffn" against "full" (one
+               forward launch per layer instead of two).
+8. profile  -- device time by kernel (torch.profiler) of one forward, of
+               8 decode steps and of one training step, against the host
+               clock.
 
-Launch counts are set to 0 just before phase 3 and read after phase 4.
-The second-to-last lines are the card's name and power limit (from
-nvidia-smi) and a JSON `kernels` line; the last line is
+Launch counts are set to 0 just before phase 3 and read after phase 4 (the
+serving path), and set to 0 again just before phase 6 and read after it
+(the training path).  The second-to-last lines are the card's name and
+power limit (from nvidia-smi) and a JSON `kernels` line; the last line is
 {"ok": true, "device": {...}}.
 """
 
 from __future__ import annotations
 
 import argparse
+import dataclasses
 import json
+import math
 import re
 import subprocess
 import sys
@@ -52,6 +75,15 @@ LONG_SEQ_GPT = dict(vocab_size=32000, d_model=2048, n_heads=16, n_layers=12,
                     d_ff=8192, max_seq=4096)
 FWD_BATCH, FWD_SEQ = 2, 4096
 SERVE_LENS, SERVE_WIDTH, SERVE_NEW = (128, 384, 640, 1024), 1024, 64
+# bench.py's long-sequence training run: B=8, T=4096, remat "full", flash
+# attention, full logits (loss_chunk 0), AdamW at 3e-4.
+TRAIN_BATCH, TRAIN_SEQ, TRAIN_STEPS, TRAIN_LR = 8, 4096, 5, 3e-4
+# The backward kernels at the training path's shape (B=8; timed there), the
+# forward's shape of phase 2, a short one, one where the forward steps
+# down to 64-row tiles, and head_dim 64.  The dense plain versions run one
+# batch slice at a time, so that their [H, S, S] f32 tensors fit.
+BWD_SHAPES = ((TRAIN_BATCH, 16, TRAIN_SEQ, 128), (2, 16, 4096, 128),
+              (1, 16, 1024, 128), (1, 16, 2880, 128), (1, 16, 1024, 64))
 
 # H100 SXM published peaks (dense bf16 tensor-core rate, HBM3 rate).
 PEAK_BF16_FLOPS = 989e12
@@ -67,6 +99,38 @@ LSE_ATOL = 1e-4
 # Model logits (std ~0.9 at this init) after 12 bf16 layers, flash vs the
 # plain attention of prefill: bf16 rounding of activations differs.
 LOGIT_ATOL = 0.1
+# Backward kernels vs their plain versions (dense f32, nothing rounded),
+# bf16 inputs ~N(0, 1): the kernels round P (for dv) and dS (for dq, dk)
+# to bf16 before the products that consume them, as the TPU kernels do,
+# and round the result to bf16, each up to 2^-9 relative; the errors of
+# the rounded terms add with random signs.  Held as max |err| <= 2^-7 *
+# max |ref| per gradient (four bf16 roundings of the largest value).
+BWD_REL = 2.0 ** -7
+# Model gradients, per leaf, as relative norm error against fp32 plain
+# attention: the kernel path may be at most this factor further off than
+# bf16 plain attention.  Both share every bf16 rounding outside attention,
+# which dominates; inside it the kernel keeps scores in f32 where the plain
+# path rounds them to bf16, so the kernel path is expected no worse (1.0),
+# with half again for the run-to-run scatter of two independent bf16
+# roundings.
+GRAD_FACTOR = 1.5
+# loss_chunk=1024 vs the full-logits loss, same weights and tokens: the
+# same per-token losses summed in another order (1e-4 relative on the
+# loss); each chunk's LM-head weight gradient is rounded to bf16 and the
+# four are summed in bf16, as the JAX package's transpose does (a few
+# 2^-8 roundings: 1e-2 in relative norm per gradient leaf).
+CHUNK_LOSS_REL, CHUNK_GRAD_REL = 1e-4, 1e-2
+# remat "ffn" vs "full": the same operations on the same values, only
+# scheduled differently (tests/test_models.py holds the JAX package's
+# modes to 1e-5).
+REMAT_REL = 1e-5
+
+
+# Profiler kernel names -> a class, first match wins: the port's kernels,
+# cuBLAS's GEMMs (nvjet on this PyTorch), PyTorch's own kernels.
+KERNEL_CLASSES = (("flash kernels", ("flash_",)),
+                  ("cuBLAS GEMM", ("nvjet", "gemm", "cutlass")),
+                  ("PyTorch elementwise/reduce", ("at::native",)))
 
 
 class SmokeFailure(RuntimeError):
@@ -117,6 +181,20 @@ def _flash_bound(b, h, s, d):
             "operations" if t_ops >= t_bytes else "bytes")
 
 
+def _bwd_bound(b, h, s, d, kernel):
+    """(least ms, what bounds it) for one backward kernel on an H100, over
+    the n = B*H*S(S+1)/2 visible pairs: dq does 6*D*n FLOP (QK^T, dO V^T,
+    dS K) and moves q, k, v, dO and dq; dk/dv does 8*D*n (K Q^T, V dO^T,
+    P^T dO, dS^T Q) and moves q, k, v, dO, dk and dv; both read lse and
+    delta (f32)."""
+    n = b * h * s * (s + 1) / 2
+    flops, tensors = {"dq": (6 * d * n, 5), "dkdv": (8 * d * n, 6)}[kernel]
+    nbytes = tensors * b * h * s * d * 2 + 2 * b * h * s * 4
+    t_ops, t_bytes = flops / PEAK_BF16_FLOPS, nbytes / PEAK_HBM_BYTES
+    return (max(t_ops, t_bytes) * 1e3,
+            "operations" if t_ops >= t_bytes else "bytes")
+
+
 def _qkv_views(gen, b, h, s, d):
     """q, k, v [B, H, S, D] bf16 as the model hands them to the kernel:
     strided views of one fused [B, S, 3, H, D] projection."""
@@ -141,32 +219,41 @@ def phase_build():
           f"{time.perf_counter() - t0:.1f} s "
           f"(nvcc {' '.join(_build.NVCC_FLAGS)})")
     # ptxas -v, per compiled kernel: registers per thread and spills; the
-    # template arguments in source order (<D, BM, BN> for flash_fwd).
+    # template arguments in source order (<D, BM, BN> for flash_fwd and
+    # flash_dq, <D, BN, BQ> for flash_dkdv).
     for name, log in logs.items():
         for fn, spill, regs in re.findall(
                 r"Compiling entry function '([^']+)'.*?"
                 r"(\d+) bytes spill stores.*?Used (\d+) registers", log,
                 re.S):
+            kernel = re.search(r"\d+(flash_\w+?)_kernel", fn)
             args = ",".join(re.findall(r"Li(\d+)E", fn))
-            print(f"[build] {name}<{args}>: {regs} registers, "
-                  f"{spill} bytes spilled")
+            print(f"[build] {name}: {kernel.group(1) if kernel else fn}"
+                  f"<{args}>: {regs} registers, {spill} bytes spilled")
 
 
-def _flash_errors(what, q, k, v, block_q, block_k):
-    """Run the kernel and its plain version on q, k, v; raise unless they
-    agree within tolerance.  Returns (max |out err|, max |lse err|)."""
-    out, lse = fa.flash_attention_fwd(q, k, v, None, block_q, block_k)
+def _fwd_errors(what, q, k, v, out, lse):
+    """Hold the forward kernel's out and lse on q, k, v against its plain
+    version; raise unless they agree within tolerance.  Returns (max |out
+    err|, max |lse err|)."""
     ref_out, ref_lse = fa.flash_attention_reference(q, k, v)
     diff = (out.float() - ref_out.float()).abs()
     e_out, e_lse = float(diff.max()), float((lse - ref_lse).abs().max())
-    print(f"[kernel] {what}: max |out| err {e_out:.3e}, max |lse| err "
-          f"{e_lse:.3e}")
     _require(bool(torch.isfinite(out).all() and torch.isfinite(lse).all()),
              f"{what}: non-finite kernel output")
     _require(bool((diff <= OUT_ATOL + OUT_RTOL * ref_out.float().abs()).all())
              and e_lse <= LSE_ATOL,
              f"{what}: kernel disagrees with the plain version (tolerance "
              f"{OUT_ATOL} + {OUT_RTOL}|ref| on out, {LSE_ATOL} on lse)")
+    return e_out, e_lse
+
+
+def _flash_errors(what, q, k, v, block_q, block_k):
+    """Run the kernel on q, k, v and hold it against its plain version."""
+    out, lse = fa.flash_attention_fwd(q, k, v, None, block_q, block_k)
+    e_out, e_lse = _fwd_errors(what, q, k, v, out, lse)
+    print(f"[kernel] {what}: max |out| err {e_out:.3e}, max |lse| err "
+          f"{e_lse:.3e}")
     return e_out, e_lse
 
 
@@ -222,11 +309,11 @@ def phase_kernel(gen):
 def phase_forward(cfg, params, gen):
     tokens = torch.randint(0, cfg.vocab_size, (FWD_BATCH, FWD_SEQ),
                            generator=gen, device="cuda")
-    before = fa.launches
+    before = fa.launches["flash_fwd"]
     logits = gpt.forward(params, tokens, cfg)
     torch.cuda.synchronize()
-    _require(fa.launches - before == cfg.n_layers,
-             f"forward launched the kernel {fa.launches - before} times, "
+    n = fa.launches["flash_fwd"] - before
+    _require(n == cfg.n_layers, f"forward launched the kernel {n} times, "
              f"not once per layer ({cfg.n_layers})")
     _require(logits.shape == (FWD_BATCH, FWD_SEQ, cfg.vocab_size)
              and logits.dtype == torch.float32
@@ -281,7 +368,243 @@ def phase_serve(cfg, params, gen):
     _check_tokens("serve", out[:, 0], fwd_last)
 
 
-def _device_profile(what, fn):
+def _launched_since(before: dict) -> dict:
+    """Kernel launches since the counts were `before`, by kernel."""
+    return {n: fa.launches[n] - before[n] for n in before}
+
+
+def _bwd_case(gen, shape):
+    """q, k, v as the model hands them to the kernels, out and lse from the
+    forward kernel, and a random dO in the model's [B, S, H, D] order."""
+    b, h, s, d = shape
+    q, k, v = _qkv_views(gen, *shape)
+    out, lse = fa.flash_attention_fwd(q, k, v)
+    g = torch.randn((b, s, h, d), generator=gen,
+                    device="cuda").bfloat16().transpose(1, 2)
+    return q, k, v, out, lse, g, d ** -0.5
+
+
+def _slices(b, *tensors):
+    """The batch slices [i:i+1] of each tensor, for i < b: the plain
+    versions run on one at a time."""
+    return [[t[i:i + 1] for t in tensors] for i in range(b)]
+
+
+def _max_rel_err(what, got, ref):
+    """max |got - ref|, raising unless it is <= BWD_REL * max |ref|."""
+    err = float((got.float() - ref.float()).abs().max())
+    top = float(ref.float().abs().max())
+    _require(bool(torch.isfinite(got).all()) and err <= BWD_REL * top,
+             f"{what}: max |err| {err:.3e} > {BWD_REL:.3e} * max |ref| "
+             f"{top:.3e}")
+    return err
+
+
+def _check_backward(shape, q, k, v, out, lse, g, delta, scale, grads):
+    """Hold the forward's out and lse and the kernels' dq, dk, dv against
+    their plain versions, batch slice by batch slice.  Returns the max
+    errors over the slices."""
+    errs = dict.fromkeys(("out", "lse", "dq", "dk", "dv"), 0.0)
+    for i, (qi, ki, vi, oi, li, gi, di, *got) in enumerate(_slices(
+            shape[0], q, k, v, out, lse, g, delta, *grads)):
+        what = f"{shape} slice {i}"
+        e_out, e_lse = _fwd_errors(what, qi, ki, vi, oi, li)
+        refs = (fa.flash_dq_reference(qi, ki, vi, gi, li, di, scale),
+                *fa.flash_dkdv_reference(qi, ki, vi, gi, li, di, scale))
+        found = {"out": e_out, "lse": e_lse, **{
+            n: _max_rel_err(f"{what} {n}", a, r)
+            for n, a, r in zip(("dq", "dk", "dv"), got, refs)}}
+        errs = {n: max(errs[n], found[n]) for n in errs}
+        del refs
+    return errs
+
+
+def phase_backward(gen):
+    rows = {}
+    for shape in BWD_SHAPES:
+        q, k, v, out, lse, g, scale = _bwd_case(gen, shape)
+        delta = fa._delta(out, g)
+        grads = (fa.flash_dq(q, k, v, g, lse, delta, scale),
+                 *fa.flash_dkdv(q, k, v, g, lse, delta, scale))
+        errs = _check_backward(shape, q, k, v, out, lse, g, delta, scale,
+                               grads)
+        # No atomics: a second call gives the same bits.
+        again = (fa.flash_dq(q, k, v, g, lse, delta, scale),
+                 *fa.flash_dkdv(q, k, v, g, lse, delta, scale))
+        _require(all(torch.equal(a, b) for a, b in zip(grads, again)),
+                 f"{shape}: two backward calls differ")
+        del again
+        row = dict(shape=list(shape), max_abs_err=errs, max_abs_grad={
+            n: float(t.float().abs().max())
+            for n, t in zip(("dq", "dk", "dv"), grads)})
+        if shape == BWD_SHAPES[0]:
+            row.update(_time_backward(q, k, v, out, lse, g, delta, scale))
+        for kernel in ("dq", "dkdv"):
+            row[f"{kernel}_bound_ms"], row[f"{kernel}_bound_by"] = \
+                _bwd_bound(*shape, kernel)
+        print(f"[backward] {json.dumps(row)}")
+        rows[shape] = row
+        del q, k, v, out, lse, g, delta, grads
+    _check_backward_through_autograd(gen)
+    return rows[BWD_SHAPES[0]]
+
+
+def _time_backward(q, k, v, out, lse, g, delta, scale):
+    """CUDA-event times of each kernel, the whole backward (delta + dq +
+    dk/dv), their plain versions (run on the batch slices one after
+    another), and the SDPA backward (the yardstick: one PyTorch call
+    computing dq, dk, dv)."""
+    b = q.shape[0]
+    rowwise = _slices(b, q, k, v, g, lse, delta)
+    whole = _slices(b, q, k, v, out, lse, g)
+    t = dict(
+        dq_ms=_ms(lambda: fa.flash_dq(q, k, v, g, lse, delta, scale)),
+        dkdv_ms=_ms(lambda: fa.flash_dkdv(q, k, v, g, lse, delta, scale)),
+        bwd_ms=_ms(lambda: fa.flash_attention_bwd(q, k, v, out, lse, g,
+                                                  scale)),
+        dq_plain_ms=_ms(lambda: [fa.flash_dq_reference(*x, scale)
+                                 for x in rowwise], iters=3, warmup=1),
+        dkdv_plain_ms=_ms(lambda: [fa.flash_dkdv_reference(*x, scale)
+                                   for x in rowwise], iters=3, warmup=1),
+        bwd_plain_ms=_ms(lambda: [fa.flash_attention_bwd_reference(
+            *x, scale) for x in whole], iters=3, warmup=1))
+    leaves = [x.detach().requires_grad_() for x in (q, k, v)]
+    o = F.scaled_dot_product_attention(*leaves, is_causal=True)
+    t["library_ms"] = _ms(lambda: torch.autograd.grad(
+        o, leaves, g, retain_graph=True))
+    return t
+
+
+def _check_backward_through_autograd(gen):
+    """flash_attention's autograd Function on the card: a sum's cotangent
+    has zero strides, which the kernels do not take, so the wrapper copies
+    it; for equal and for unequal forward blocks each kernel runs once and
+    the gradients agree with the plain backward."""
+    q, k, v, out, lse, _, scale = _bwd_case(gen, (1, 16, 1024, 128))
+    ones = torch.ones_like(out)
+    refs = fa.flash_attention_bwd_reference(q, k, v, out, lse, ones, scale)
+    for blocks in ((fa.DEFAULT_BLOCK_Q, fa.DEFAULT_BLOCK_K), (128, 64)):
+        leaves = [x.detach().requires_grad_() for x in (q, k, v)]
+        before = dict(fa.launches)
+        # dO: ones, strides 0
+        fa.flash_attention(*leaves, None, *blocks).sum().backward()
+        torch.cuda.synchronize()
+        ran = _launched_since(before)
+        _require(ran == {"flash_fwd": 1, "flash_dq": 1, "flash_dkdv": 1},
+                 f"autograd through flash_attention{blocks} launched {ran}")
+        for name, x, ref in zip(("dq", "dk", "dv"), leaves, refs):
+            _max_rel_err(f"autograd {blocks} {name}", x.grad, ref)
+    print("[backward] autograd through flash_attention (zero-stride dO), "
+          "blocks 512x512 and 128x64: 1 launch of each kernel, gradients "
+          "agree with the plain version")
+
+
+def phase_train(cfg, gen):
+    state, opt = gpt.make_train_state(cfg, gen, learning_rate=TRAIN_LR)
+    tokens = torch.randint(0, cfg.vocab_size, (TRAIN_BATCH, TRAIN_SEQ + 1),
+                           generator=gen, device="cuda")
+    step = gpt.make_train_step(cfg, optimizer=opt)
+    want = {"flash_fwd": 2 * cfg.n_layers, "flash_dq": cfg.n_layers,
+            "flash_dkdv": cfg.n_layers}
+    torch.cuda.reset_peak_memory_stats()
+    losses, times = [], []
+    for i in range(1 + TRAIN_STEPS):  # one warm-up step, then timed steps
+        before = dict(fa.launches)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        state, metrics = step(state, tokens)
+        losses.append(float(metrics["loss"]))
+        torch.cuda.synchronize()
+        if i:
+            times.append(time.perf_counter() - t0)
+        ran = _launched_since(before)
+        _require(ran == want, f"train step {i} launched {ran}, not {want}")
+    _require(all(math.isfinite(x) for x in losses),
+             f"non-finite training loss: {losses}")
+    _require(losses[-1] < losses[0],
+             f"training loss did not fall: {losses}")
+    ms = sum(times) / len(times) * 1e3
+    tps = TRAIN_BATCH * TRAIN_SEQ / ms * 1e3
+    n_params = sum(p.numel() for p in gpt._leaves(state["params"]))
+    flops_6n = 6 * n_params
+    flops_attn = flops_6n + 12 * cfg.n_layers * TRAIN_SEQ * cfg.d_model
+    row = dict(batch=TRAIN_BATCH, seq=TRAIN_SEQ, losses=losses,
+               step_ms=ms, step_ms_each=[x * 1e3 for x in times],
+               tokens_per_s=tps, n_params=n_params,
+               mfu_6n=flops_6n * tps / PEAK_BF16_FLOPS,
+               mfu_6n_plus_attention=flops_attn * tps / PEAK_BF16_FLOPS,
+               peak_memory_gb=torch.cuda.max_memory_allocated() / 1e9,
+               launches_per_step=want)
+    print(f"[train] {json.dumps(row)}")
+    return state, step, tokens
+
+
+def _loss_and_grads(params, tokens, cfg):
+    leaves = gpt._leaves(params)
+    loss = gpt.loss_fn(params, tokens, cfg)
+    grads = torch.autograd.grad(loss, leaves)
+    return float(loss.detach()), [g.float() for g in grads]
+
+
+def _rel_norm(a, b):
+    return float((a - b).norm() / b.norm())
+
+
+def phase_gradcheck(cfg, params, gen):
+    tokens = torch.randint(0, cfg.vocab_size, (1, TRAIN_SEQ + 1),
+                           generator=gen, device="cuda")
+    runs = {}
+    for name, run_cfg in (
+            ("kernel", cfg),
+            ("plain_bf16", dataclasses.replace(cfg, use_flash=False)),
+            ("plain_fp32", dataclasses.replace(cfg, use_flash=False,
+                                               dtype=torch.float32)),
+            ("kernel_chunk1024", dataclasses.replace(cfg, loss_chunk=1024)),
+            ("kernel_remat_ffn", dataclasses.replace(cfg, remat_mode="ffn"))):
+        before = dict(fa.launches)
+        runs[name] = _loss_and_grads(params, tokens, run_cfg)
+        ran = _launched_since(before)
+        # "full" re-runs each layer's flash forward in the backward; "ffn"
+        # stores the attention's residuals, so it runs once.
+        fwd = 0 if name.startswith("plain") else cfg.n_layers * (
+            1 if run_cfg.remat_mode == "ffn" else 2)
+        bwd = 0 if name.startswith("plain") else cfg.n_layers
+        _require(ran == {"flash_fwd": fwd, "flash_dq": bwd,
+                         "flash_dkdv": bwd}, f"{name}: launched {ran}")
+    ref_loss, ref = runs["plain_fp32"]
+    rows = []
+    for i, (name, _) in enumerate(gpt._named_leaves(params)):
+        e_kernel = _rel_norm(runs["kernel"][1][i], ref[i])
+        e_plain = _rel_norm(runs["plain_bf16"][1][i], ref[i])
+        e_chunk = _rel_norm(runs["kernel_chunk1024"][1][i],
+                            runs["kernel"][1][i])
+        e_ffn = _rel_norm(runs["kernel_remat_ffn"][1][i],
+                          runs["kernel"][1][i])
+        rows.append(dict(leaf=name, kernel_vs_fp32=e_kernel,
+                         plain_bf16_vs_fp32=e_plain,
+                         chunk1024_vs_full=e_chunk, remat_ffn_vs_full=e_ffn))
+        _require(e_ffn <= REMAT_REL, f"{name}: remat 'ffn' gradient differs "
+                 f"from 'full' by {e_ffn:.3e}")
+        _require(e_kernel <= GRAD_FACTOR * e_plain,
+                 f"{name}: kernel-path gradient error {e_kernel:.3e} > "
+                 f"{GRAD_FACTOR} x plain bf16 {e_plain:.3e}")
+        _require(e_chunk <= CHUNK_GRAD_REL,
+                 f"{name}: loss_chunk=1024 gradient differs by {e_chunk:.3e}")
+    losses = {n: r[0] for n, r in runs.items()}
+    chunk_err = abs(losses["kernel_chunk1024"] - losses["kernel"]) / abs(
+        losses["kernel"])
+    _require(chunk_err <= CHUNK_LOSS_REL,
+             f"loss_chunk=1024 loss differs by {chunk_err:.3e}")
+    for r in rows:
+        print(f"[gradcheck] {json.dumps(r)}")
+    print(f"[gradcheck] B=1 T={TRAIN_SEQ} losses {json.dumps(losses)}; "
+          f"per leaf, relative norm error of the kernel path <= "
+          f"{GRAD_FACTOR} x plain bf16's (both against plain fp32), "
+          f"loss_chunk=1024 within {CHUNK_GRAD_REL} of loss_chunk=0, remat "
+          f"'ffn' within {REMAT_REL} of 'full'")
+
+
+def _device_profile(what, fn, top=6):
     """Run fn() once under torch.profiler (CUDA activity) and print the
     device time by kernel: total, share of the host-clock window, top
     kernels."""
@@ -296,29 +619,43 @@ def _device_profile(what, fn):
         wall_ms = (time.perf_counter() - t0) * 1e3
     # Device-side events only (kernels, copies): a CPU op's device time
     # repeats that of the kernels it launched.
-    kernels = [(e.key, e.self_device_time_total / 1e3)
-               for e in prof.key_averages()
+    averages = prof.key_averages()
+    kernels = [(e.key, e.self_device_time_total / 1e3) for e in averages
                if e.device_type == DeviceType.CUDA]
     busy_ms = sum(ms for _, ms in kernels)
     _require(busy_ms > 0, f"{what}: the profiler saw no device time")
-    top = sorted(kernels, key=lambda kv: -kv[1])[:6]
     print(f"[profile] {what}: {wall_ms:.2f} ms host clock, {busy_ms:.2f} ms "
           f"device busy ({100 * busy_ms / wall_ms:.1f} %), "
           f"{len(kernels)} kernel names")
-    for name, ms in top:
+    for name, ms in sorted(kernels, key=lambda kv: -kv[1])[:top]:
         print(f"[profile]   {ms:8.3f} ms  {name[:90]}")
+    classes = {}
+    for name, ms in kernels:
+        cls = next((c for c, keys in KERNEL_CLASSES if any(
+            k in name for k in keys)), "other")
+        classes[cls] = classes.get(cls, 0.0) + ms
+    print(f"[profile]   by class, ms: {json.dumps(classes)}")
+    # The same device time attributed to the PyTorch ops that launched it.
+    ops = sorted(((e.key, e.self_device_time_total / 1e3, e.count)
+                  for e in averages if e.device_type == DeviceType.CPU
+                  and e.self_device_time_total > 0), key=lambda x: -x[1])
+    for name, ms, count in ops[:top]:
+        print(f"[profile]   op {ms:8.3f} ms  {count:5d} calls  {name[:70]}")
 
 
-def phase_profile(cfg, params, gen):
+def phase_profile(cfg, state, step, train_tokens, gen):
+    params = state["params"]
     tokens = torch.randint(0, cfg.vocab_size, (FWD_BATCH, FWD_SEQ),
                            generator=gen, device="cuda")
-    _device_profile(f"forward B={FWD_BATCH} T={FWD_SEQ}",
-                    lambda: gpt.forward(params, tokens, cfg))
+    with torch.no_grad():
+        _device_profile(f"forward B={FWD_BATCH} T={FWD_SEQ}",
+                        lambda: gpt.forward(params, tokens, cfg))
     B, new = len(SERVE_LENS), 8
     prompt = torch.randint(1, cfg.vocab_size, (B, SERVE_WIDTH),
                            generator=gen, device="cuda")
     cache = decode.init_cache(cfg, B, max_seq=SERVE_WIDTH + new)
-    mat = decode._matmul_weights_in(params, cfg.dtype)  # as generate does
+    with torch.no_grad():
+        mat = decode._matmul_weights_in(params, cfg.dtype)  # as generate does
     logits, cache = decode.prefill(mat, prompt, cfg, cache)
     token = logits[:, -1].argmax(-1)
 
@@ -331,6 +668,9 @@ def phase_profile(cfg, params, gen):
 
     _device_profile(f"{new} decode steps B={B} at column {SERVE_WIDTH}",
                     steps)
+    del cache, mat
+    _device_profile(f"train step B={TRAIN_BATCH} T={TRAIN_SEQ}",
+                    lambda: step(state, train_tokens), top=10)
 
 
 def main(argv=None) -> int:
@@ -351,25 +691,56 @@ def main(argv=None) -> int:
 
     cfg = gpt.GPTConfig(**LONG_SEQ_GPT, dtype=torch.bfloat16)
     params = gpt.init_params(cfg, gen)
-    fa.launches = 0  # the main path starts here
+    fa.reset_launches()  # the serving path starts here
     phase_forward(cfg, params, gen)
     phase_serve(cfg, params, gen)
-    launches = fa.launches
-    _require(launches > 0, "the main path launched no flash kernel")
-    phase_profile(cfg, params, gen)
+    serve = dict(fa.launches)
+    _require(serve["flash_fwd"] > 0, "the serving path launched no flash "
+             "forward kernel")
+    del params  # the training state needs the room
+    torch.cuda.empty_cache()
+
+    brow = phase_backward(gen)
+
+    train_cfg = dataclasses.replace(cfg, remat=True, remat_mode="full",
+                                    use_flash=True, loss_chunk=0)
+    fa.reset_launches()  # the training path starts here
+    state, step, train_tokens = phase_train(train_cfg, gen)
+    train = dict(fa.launches)
+    _require(all(train.values()), f"the training path left a kernel "
+             f"unlaunched: {train}")
+    phase_gradcheck(train_cfg, state["params"], gen)
+    phase_profile(train_cfg, state, step, train_tokens, gen)
 
     print(smi)
-    print(json.dumps({"kernels": [{
-        "name": "flash_fwd", "route": "cuda",
-        "source": "ray_tpu_torch/ops/csrc/flash_fwd.cu",
-        "replaces": "ray_tpu/ops/flash_attention.py:53",
-        "launches": launches, "max_abs_err": krow["max_abs_err"],
-        "ms": krow["ms"], "plain_ms": krow["plain_ms"],
-        "bound_ms": krow["bound_ms"], "bound_by": krow["bound_by"],
-        "library_ms": krow["library_ms"]}]}))
+    print(json.dumps({"kernels": [
+        {"name": "flash_fwd", "route": "cuda",
+         "source": "ray_tpu_torch/ops/csrc/flash_fwd.cu",
+         "replaces": "ray_tpu/ops/flash_attention.py:53",
+         "launches": serve["flash_fwd"] + train["flash_fwd"],
+         "launches_by_path": {"serve": serve["flash_fwd"],
+                              "train": train["flash_fwd"]},
+         "max_abs_err": krow["max_abs_err"], "ms": krow["ms"],
+         "plain_ms": krow["plain_ms"], "bound_ms": krow["bound_ms"],
+         "bound_by": krow["bound_by"], "library_ms": krow["library_ms"]},
+        *({"name": f"flash_{k}", "route": "cuda",
+           "source": "ray_tpu_torch/ops/csrc/flash_bwd.cu",
+           "replaces": f"ray_tpu/ops/flash_attention.py:{line}",
+           "launches": train[f"flash_{k}"],
+           "launches_by_path": {"serve": serve[f"flash_{k}"],
+                                "train": train[f"flash_{k}"]},
+           "max_abs_err": max(brow["max_abs_err"][n] for n in grads),
+           "ms": brow[f"{k}_ms"], "plain_ms": brow[f"{k}_plain_ms"],
+           "bound_ms": brow[f"{k}_bound_ms"],
+           "bound_by": brow[f"{k}_bound_by"],
+           "library_ms": brow["library_ms"],
+           "library_call": "backward of F.scaled_dot_product_attention "
+                           "(dq, dk and dv in one call)"}
+          for k, line, grads in (("dq", 130, ("dq",)),
+                                 ("dkdv", 167, ("dk", "dv"))))]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
-        "count": torch.cuda.device_count()}}))
+        "count": 1}}))
     return 0
 
 

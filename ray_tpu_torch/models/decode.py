@@ -9,7 +9,9 @@ columns, with fp32 scores, exactly as the reference does.
 
 Generation is a Python loop over `decode_step` (PyTorch runs eagerly; the
 JAX package's whole-loop `lax.scan` has no counterpart here).  Randomness
-comes from an explicit `torch.Generator`.
+comes from an explicit `torch.Generator`.  `prefill`, `decode_step` and
+`generate` run under `torch.no_grad()`: with parameters that require grad
+(a train state's), they record no autograd graph and keep no activations.
 
 Not ported yet (they raise NotImplementedError): LLaMA configs,
 speculative decoding (`speculate_k > 0`), `chunk_step` and the paged-cache
@@ -91,6 +93,7 @@ def _cached_attention(q, ck, cv, pos, pad_lo, cfg):
 # Prefill + single-step decode
 
 
+@torch.no_grad()
 def prefill(params: Dict, tokens, cfg, cache: Dict, prompt_lens=None):
     """Run the prompt [B, T] through the model, writing cache[:, :, :T] in
     place.
@@ -135,6 +138,7 @@ def prefill(params: Dict, tokens, cfg, cache: Dict, prompt_lens=None):
     return _final_logits(params, x, cfg), cache
 
 
+@torch.no_grad()
 def decode_step(params: Dict, token, pos, cache: Dict, cfg, pad_lo=None):
     """One token [B] at cache column `pos` -> (logits [B, V], cache with
     the token's K/V written in place).  `pos` is an int (every row writes
@@ -210,6 +214,7 @@ def _matmul_weights_in(params: Dict, dtype) -> Dict:
     return {**params, "blocks": blocks, "wlm": params["wlm"].to(dtype)}
 
 
+@torch.no_grad()
 def generate(params: Dict, prompt, cfg, *, max_new_tokens: int,
              temperature: float = 0.0, top_k: int = 0,
              generator: Optional[torch.Generator] = None,

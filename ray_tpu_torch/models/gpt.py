@@ -5,20 +5,29 @@ Same parameter dictionary as the JAX package (keys, shapes, layouts and
 init scales; block leaves stacked over layers with a leading L), same
 arithmetic: bf16 compute on fp32 parameters, RMSNorm in fp32, tanh-GELU
 FFN, fp32 logits from bf16 operands.  Causal attention goes through the
-Hopper flash kernel (ops/flash_attention.py) for CUDA inputs whose shape
-and dtype it takes, else through the dense `reference_attention`.
+Hopper flash kernels (ops/flash_attention.py: forward, and dq and dk/dv in
+the backward) for CUDA inputs whose shape and dtype they take, else
+through the dense `reference_attention`.
 
-Only the inference forward is ported: the mesh (dp/fsdp/tp/pp/sp/ep),
-MoE, remat and the loss/train step are later slices.
+Training: `loss_fn` (next-token cross entropy, optionally a token-chunk
+at a time), remat through `torch.utils.checkpoint`, and `make_train_state`
+/ `train_step` / `make_train_step` with AdamW at optax's defaults.  Unlike
+the JAX package, a step updates the parameters and the optimizer state in
+place.
+
+Not ported yet (they raise NotImplementedError): the mesh
+(dp/fsdp/tp/pp/sp/ep), MoE, and `remat_save_attn`.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import functools
 import math
 
 import torch
 import torch.nn.functional as F
+from torch.utils.checkpoint import checkpoint
 
 from ray_tpu_torch._private.device import resolve_device
 from ray_tpu_torch.ops import flash_attention as fa
@@ -35,10 +44,28 @@ class GPTConfig:
     max_seq: int = 2048
     n_experts: int = 0          # only 0 (dense ffn) is ported
     dtype: torch.dtype = torch.bfloat16
-    # Flash kernel for causal attention on CUDA (shapes it takes).
+    # Recompute activations in the backward (torch.utils.checkpoint).
+    # "full": checkpoint the whole layer; the backward re-runs the layer's
+    # forward, the flash forward kernel included.  "ffn": checkpoint the ffn
+    # branch and the pre-attention norm and store the attention's residuals
+    # (q, k, v, out, lse), so the flash forward runs once.
+    remat: bool = True
+    remat_mode: str = "full"
+    # Pin the attention output across a "full" checkpoint: not ported yet.
+    remat_save_attn: bool = False
+    # Flash kernels for causal attention on CUDA (shapes they take).
     use_flash: bool = True
+    # Blockwise LM-head loss: the [chunk, vocab] logits and their cross
+    # entropy a token-chunk at a time, checkpointed, instead of the full
+    # [B*T, vocab] f32 logits.  0 = off.
+    loss_chunk: int = 0
     # False = bidirectional attention (encoder models).
     causal: bool = True
+
+    def __post_init__(self):
+        if self.remat_mode not in ("full", "ffn"):
+            raise ValueError(f"remat_mode must be 'full' or 'ffn', "
+                             f"got {self.remat_mode!r}")
 
     @property
     def head_dim(self) -> int:
@@ -52,6 +79,10 @@ def _check_supported(cfg: GPTConfig, mesh=None) -> None:
                                   "(mesh=None); the mesh is not ported yet")
     if cfg.n_experts:
         raise NotImplementedError("MoE (n_experts > 0) is not ported yet")
+    if cfg.remat_save_attn:
+        raise NotImplementedError(
+            "remat_save_attn (pinning the attention output across the layer "
+            "checkpoint) is not ported yet")
 
 
 # ---------------------------------------------------------------------------
@@ -125,12 +156,16 @@ def _attn_out(out, lp, cfg: GPTConfig):
         h * dh, -1)
 
 
+def _uses_kernel(x, cfg: GPTConfig) -> bool:
+    """Whether attention over x [B, t, D] runs the flash kernels."""
+    return (x.is_cuda and cfg.use_flash and cfg.causal
+            and fa.supports(x.shape[1], cfg.head_dim, x.dtype))
+
+
 def _attention(x, lp, cfg: GPTConfig):
     q, k, v = _qkv(x, lp, cfg)
-    t = q.shape[1]
     scale = cfg.head_dim ** -0.5
-    if (q.is_cuda and cfg.use_flash and cfg.causal
-            and fa.supports(t, cfg.head_dim, q.dtype)):
+    if _uses_kernel(x, cfg):
         # [b,t,h,k] -> [b,h,t,k] views for the kernel, which writes its
         # output in [b,t,h,k] order, so the transpose back is free.
         out = fa.flash_attention(q.transpose(1, 2), k.transpose(1, 2),
@@ -146,17 +181,83 @@ def _dense_ffn(x, lp, cfg: GPTConfig):
     return h @ lp["w2"].to(dt)
 
 
+def _mm_f32(a, b):
+    """a @ b with fp32 accumulation and an fp32 result.  bf16 CUDA operands
+    stay bf16 (the fast tensor-core product); elsewhere the operands are
+    upcast, which for bf16 gives the same sum, since products of two bf16
+    values are exact in fp32."""
+    if a.is_cuda and a.dtype != torch.float32:
+        return torch.mm(a, b, out_dtype=torch.float32)
+    return a.float() @ b.float()
+
+
+class _LMHead(torch.autograd.Function):
+    """fp32 logits from operands in cfg.dtype, with a backward.
+
+    The backward matches what the JAX package's transpose of its
+    `preferred_element_type=f32` product computes: the fp32 cotangent g is
+    rounded to the operands' dtype, dx = g w^T and dw = x^T g accumulate in
+    fp32, and each is cast back to its operand's dtype.  For bf16 that is
+    bf16 operands with fp32 accumulation; for fp32 operands it is the plain
+    fp32 product, the same as autograd through `a.float() @ w.float()`.
+    (torch's own `mm(out_dtype=float32)` has no derivative.)"""
+
+    @staticmethod
+    def forward(ctx, a, w):
+        ctx.save_for_backward(a, w)
+        return _mm_f32(a, w)
+
+    @staticmethod
+    def backward(ctx, g):
+        a, w = ctx.saved_tensors
+        g = g.to(a.dtype)
+        return (_mm_f32(g, w.t()).to(a.dtype),
+                _mm_f32(a.t(), g).to(w.dtype))
+
+
 def _lm_head(x, wlm, cfg: GPTConfig):
     """Logits in fp32 from cfg.dtype operands with fp32 accumulation."""
     a = x.to(cfg.dtype).reshape(-1, x.shape[-1])
-    w = wlm.to(cfg.dtype)
-    if a.is_cuda and a.dtype != torch.float32:
-        logits = torch.mm(a, w, out_dtype=torch.float32)
-    else:
-        # Products of two bf16 values are exact in fp32, so this is the
-        # same sum as the fused bf16 product with fp32 accumulation.
-        logits = a.float() @ w.float()
+    logits = _LMHead.apply(a, wlm.to(cfg.dtype))
     return logits.reshape(*x.shape[:-1], -1)
+
+
+def _checkpointed(fn):
+    """fn under non-reentrant activation checkpointing (its saved tensors
+    are recomputed in the backward).  The layers draw no random numbers,
+    so no RNG state is stashed."""
+    return functools.partial(checkpoint, fn, use_reentrant=False,
+                             preserve_rng_state=False)
+
+
+def _make_layer_fn(cfg: GPTConfig):
+    """One transformer layer x -> x, with the JAX package's remat
+    structure (gpt.py `_make_layer_fn`)."""
+
+    def ffn_branch(x, lp):
+        return x + _dense_ffn(_rmsnorm(x, lp["ln2"]), lp, cfg)
+
+    if cfg.remat and cfg.remat_mode == "ffn":
+        ffn_ckpt = _checkpointed(ffn_branch)
+        norm_ckpt = _checkpointed(_rmsnorm)
+
+        def attn_branch(x, lp):
+            return x + _attention(norm_ckpt(x, lp["ln1"]), lp, cfg)
+
+        attn_ckpt = _checkpointed(attn_branch)
+
+        def layer(x, lp):
+            # With the kernels, attention's residuals are O(B*T*D) and are
+            # stored; the dense attention would store O(T^2) probabilities,
+            # so it is checkpointed too.
+            attn = attn_branch if _uses_kernel(x, cfg) else attn_ckpt
+            return ffn_ckpt(attn(x, lp), lp)
+        return layer
+
+    def layer(x, lp):
+        x = x + _attention(_rmsnorm(x, lp["ln1"]), lp, cfg)
+        return ffn_branch(x, lp)
+    return _checkpointed(layer) if cfg.remat else layer
 
 
 # ---------------------------------------------------------------------------
@@ -169,10 +270,9 @@ def hidden_states(params: dict, tokens, cfg: GPTConfig, mesh=None):
     tokens = torch.as_tensor(tokens, device=params["wte"].device)
     t = tokens.shape[1]
     x = (params["wte"][tokens] + params["wpe"][:t]).to(cfg.dtype)
+    layer = _make_layer_fn(cfg)
     for i in range(cfg.n_layers):
-        lp = layer_params(params, i)
-        x = x + _attention(_rmsnorm(x, lp["ln1"]), lp, cfg)
-        x = x + _dense_ffn(_rmsnorm(x, lp["ln2"]), lp, cfg)
+        x = layer(x, layer_params(params, i))
     return _rmsnorm(x, params["ln_f"])
 
 
@@ -180,3 +280,118 @@ def forward(params: dict, tokens, cfg: GPTConfig, mesh=None):
     """tokens: [B, T] int -> logits [B, T, vocab] (fp32)."""
     return _lm_head(hidden_states(params, tokens, cfg, mesh), params["wlm"],
                     cfg)
+
+
+# ---------------------------------------------------------------------------
+# Loss / train step
+
+
+def _cross_entropy(logits, targets):
+    """Per-token softmax cross entropy with integer labels, in fp32:
+    logsumexp(logits) - logits[target]."""
+    return F.cross_entropy(logits.reshape(-1, logits.shape[-1]),
+                           targets.reshape(-1), reduction="none")
+
+
+def _chunk_ce(xc, tc, wlm, cfg):
+    return _cross_entropy(_lm_head(xc, wlm, cfg), tc)
+
+
+def loss_fn(params, tokens, cfg: GPTConfig, mesh=None):
+    """Next-token cross entropy (mean over B*T tokens); tokens [B, T+1]."""
+    _check_supported(cfg, mesh)
+    tokens = torch.as_tensor(tokens, device=params["wte"].device).long()
+    inputs, targets = tokens[:, :-1], tokens[:, 1:]
+    B, T = inputs.shape
+    chunk = cfg.loss_chunk
+    if chunk and (B * T) % chunk != 0:
+        # As the reference: round down to the largest divisor <= chunk
+        # rather than fall back to the full logits.
+        chunk = next(c for c in range(min(chunk, B * T), 0, -1)
+                     if (B * T) % c == 0)
+    if chunk:
+        # One chunk's [chunk, vocab] logits live at a time; the checkpoint
+        # recomputes them in the backward.
+        x = hidden_states(params, inputs, cfg, mesh)
+        xf = x.reshape(B * T, -1).to(cfg.dtype)
+        wlm = params["wlm"].to(cfg.dtype)
+        ce = _checkpointed(_chunk_ce)
+        losses = [ce(xc, tc, wlm, cfg) for xc, tc in
+                  zip(xf.split(chunk), targets.reshape(B * T).split(chunk))]
+        return torch.cat(losses).mean()
+    return _cross_entropy(forward(params, inputs, cfg, mesh), targets).mean()
+
+
+def _named_leaves(tree, prefix: str = "") -> list:
+    """(dotted name, tensor) of each leaf of a nested parameter dict, in
+    key order."""
+    if isinstance(tree, dict):
+        return [leaf for k in sorted(tree)
+                for leaf in _named_leaves(tree[k], f"{prefix}{k}.")]
+    return [(prefix[:-1], tree)]
+
+
+def _leaves(tree) -> list:
+    """The tensors of a nested parameter dict, in key order."""
+    return [t for _, t in _named_leaves(tree)]
+
+
+def _adamw(params, learning_rate: float = 3e-4) -> torch.optim.AdamW:
+    """AdamW at optax.adamw's defaults (b1 0.9, b2 0.999, eps 1e-8, weight
+    decay 1e-4 on every leaf, norms and embeddings included; torch's own
+    default decay is 1e-2)."""
+    return torch.optim.AdamW(_leaves(params), lr=learning_rate,
+                             betas=(0.9, 0.999), eps=1e-8,
+                             weight_decay=1e-4)
+
+
+def make_train_state(cfg: GPTConfig, generator: torch.Generator,
+                     device=None, optimizer=None,
+                     learning_rate: float = 3e-4):
+    """Init params (leaf tensors that require grad) and the optimizer ->
+    (state, optimizer).
+
+    `optimizer` is a function from the parameter dict to a
+    torch.optim.Optimizer over its leaves (default: AdamW at optax.adamw's
+    defaults and `learning_rate`).  state = {"params", "opt_state", "step"}, where
+    "opt_state" is the optimizer's per-parameter state, which its `step`
+    updates in place."""
+    params = init_params(cfg, generator, device)
+    for p in _leaves(params):
+        p.requires_grad_(True)
+    opt = (optimizer or functools.partial(
+        _adamw, learning_rate=learning_rate))(params)
+    return {"params": params, "opt_state": opt.state, "step": 0}, opt
+
+
+def train_step(state, tokens, cfg: GPTConfig, mesh=None, optimizer=None):
+    """One optimizer step on tokens [B, T+1] -> (state, {"loss": loss}).
+
+    The parameters, their gradients and `optimizer`'s state (which must be
+    the optimizer make_train_state returned, since a torch optimizer holds
+    its parameters) are updated in place; the returned state is `state`
+    with its step counted."""
+    if optimizer is None:
+        raise ValueError("pass the optimizer that make_train_state returned: "
+                         "it holds the parameters it updates")
+    optimizer.zero_grad(set_to_none=True)
+    loss = loss_fn(state["params"], tokens, cfg, mesh)
+    loss.backward()
+    optimizer.step()
+    state["step"] += 1
+    return state, {"loss": loss.detach()}
+
+
+def make_train_step(cfg: GPTConfig, mesh=None, optimizer=None,
+                    donate: bool = True):
+    """train_step bound to cfg and the optimizer, as a callable
+    (state, tokens) -> (state, metrics).
+
+    `donate` is accepted for the JAX package's signature and has no
+    counterpart: PyTorch runs eagerly and the step updates the parameters
+    and optimizer state in place, so no buffers are copied to donate."""
+    _check_supported(cfg, mesh)
+    if optimizer is None:
+        raise ValueError("pass the optimizer that make_train_state returned")
+    return functools.partial(train_step, cfg=cfg, mesh=mesh,
+                             optimizer=optimizer)

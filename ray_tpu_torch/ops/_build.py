@@ -2,8 +2,9 @@
 
 Every `csrc/<name>.cu` compiles with nvcc for Hopper (`sm_90a`) into a
 shared library with a plain C interface, `build/ray_tpu_torch/lib<name>-
-<hash>.so` under the repository root.  The hash is of the source, so an
-edited kernel rebuilds and an unchanged one is reused.  Building happens at
+<hash>.so` under the repository root.  The hash is of the source and of
+the shared headers (`csrc/*.cuh`), so an edited kernel rebuilds and an
+unchanged one is reused.  Building happens at
 first use, from the sources in this package only; nothing is imported or
 compiled when the module is imported.
 
@@ -39,9 +40,13 @@ def _nvcc() -> str:
 
 
 def _target(name: str) -> Path:
-    digest = hashlib.sha256((CSRC / f"{name}.cu").read_bytes()
-                            + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
-    return BUILD_DIR / f"lib{name}-{digest}.so"
+    """The library of csrc/<name>.cu, named by a hash of the source, the
+    shared headers (csrc/*.cuh) and the flags."""
+    h = hashlib.sha256((CSRC / f"{name}.cu").read_bytes())
+    for header in sorted(CSRC.glob("*.cuh")):
+        h.update(header.read_bytes())
+    h.update(" ".join(NVCC_FLAGS).encode())
+    return BUILD_DIR / f"lib{name}-{h.hexdigest()[:16]}.so"
 
 
 def build_all(names=None) -> dict[str, str]:
