@@ -29,7 +29,9 @@ Phases, each of which raises on failure (the script then exits non-zero):
                and time them there beside their bounds, the plain versions
                and the backward of F.scaled_dot_product_attention (the
                yardstick); autograd through flash_attention launches the
-               kernels for equal and unequal blocks alike.
+               kernels for equal and unequal blocks alike; each kernel's
+               registers and shared memory a block (cudaFuncGetAttributes),
+               with no spills.
 6. train    -- the same GPT with remat="full", trained with the default
                AdamW at 3e-4 for 1 + 5 steps at B=8, T=4096 on one fixed
                batch: finite, falling loss, and per step exactly 2 forward
@@ -219,17 +221,22 @@ def phase_build():
           f"{time.perf_counter() - t0:.1f} s "
           f"(nvcc {' '.join(_build.NVCC_FLAGS)})")
     # ptxas -v, per compiled kernel: registers per thread and spills; the
-    # template arguments in source order (<D, BM, BN> for flash_fwd and
-    # flash_dq, <D, BN, BQ> for flash_dkdv).
+    # template arguments in source order (<D, BM, BN> for flash_fwd, <D,
+    # dq or dkdv> for flash_bwd, whose count is the launch's: setmaxnreg
+    # then moves registers between its warpgroups, as flash_bwd.cu's
+    # PRODUCER_REGS and CONSUMER_REGS ask).
     for name, log in logs.items():
         for fn, spill, regs in re.findall(
                 r"Compiling entry function '([^']+)'.*?"
                 r"(\d+) bytes spill stores.*?Used (\d+) registers", log,
                 re.S):
             kernel = re.search(r"\d+(flash_\w+?)_kernel", fn)
-            args = ",".join(re.findall(r"Li(\d+)E", fn))
+            args = [int(a) for a in re.findall(r"L[ib](\d+)E", fn)]
+            if kernel and kernel.group(1) == "flash_bwd":
+                args[1:] = ["dq" if args[1] else "dkdv"]
             print(f"[build] {name}: {kernel.group(1) if kernel else fn}"
-                  f"<{args}>: {regs} registers, {spill} bytes spilled")
+                  f"<{','.join(map(str, args))}>: {regs} registers, {spill} "
+                  f"bytes spilled")
 
 
 def _fwd_errors(what, q, k, v, out, lse):
@@ -419,6 +426,32 @@ def _check_backward(shape, q, k, v, out, lse, g, delta, scale, grads):
     return errs
 
 
+def _bwd_attributes():
+    """{(head_dim, "dq" or "dkdv"): attributes} of the backward kernels, as
+    cudaFuncGetAttributes reads them after their launches: registers a
+    thread at launch (before setmaxnreg), static shared memory a block,
+    spilled bytes a thread, the most threads a block may have, and the
+    dynamic shared memory a block was given."""
+    import ctypes
+    lib = _build.load("flash_bwd")
+    fn = lib.flash_bwd_attributes
+    fn.argtypes = [ctypes.c_int, ctypes.c_int, ctypes.POINTER(ctypes.c_int)]
+    keys = ("launch_registers", "static_smem_bytes", "local_bytes",
+            "max_threads_per_block", "dynamic_smem_bytes")
+    found = {}
+    for d in fa.KERNEL_HEAD_DIMS:
+        for kernel in ("dq", "dkdv"):
+            out = (ctypes.c_int * len(keys))()
+            _build.check(lib, fn(d, int(kernel == "dq"), out),
+                         "flash_bwd_attributes")
+            found[(d, kernel)] = dict(zip(keys, out))
+            print(f"[backward] flash_bwd<{d},{kernel}> attributes: "
+                  f"{json.dumps(found[(d, kernel)])}")
+    _require(all(a["local_bytes"] == 0 for a in found.values()),
+             "a backward kernel spills to local memory")
+    return found
+
+
 def phase_backward(gen):
     rows = {}
     for shape in BWD_SHAPES:
@@ -446,7 +479,11 @@ def phase_backward(gen):
         rows[shape] = row
         del q, k, v, out, lse, g, delta, grads
     _check_backward_through_autograd(gen)
-    return rows[BWD_SHAPES[0]]
+    # After the launches above, which set each kernel's dynamic shared memory.
+    attrs = _bwd_attributes()
+    d = BWD_SHAPES[0][3]
+    return dict(rows[BWD_SHAPES[0]], attributes={
+        k: attrs[(d, k)] for k in ("dq", "dkdv")})
 
 
 def _time_backward(q, k, v, out, lse, g, delta, scale):
@@ -735,7 +772,8 @@ def main(argv=None) -> int:
            "bound_by": brow[f"{k}_bound_by"],
            "library_ms": brow["library_ms"],
            "library_call": "backward of F.scaled_dot_product_attention "
-                           "(dq, dk and dv in one call)"}
+                           "(dq, dk and dv in one call)",
+           "attributes": brow["attributes"][k]}
           for k, line, grads in (("dq", 130, ("dq",)),
                                  ("dkdv", 167, ("dk", "dv"))))]}))
     print(json.dumps({"ok": True, "device": {

@@ -73,6 +73,20 @@ def init_cache(cfg, batch: int, max_seq: Optional[int] = None,
             "v": torch.zeros(shape, dtype=cfg.dtype, device=device)}
 
 
+def _scores_f32(q, ck):
+    """q [B,1,H,Dh] . ck [B,S,H,Dh] -> fp32 scores [B,H,1,S].  On CUDA the
+    operands stay in the cache's dtype, with fp32 accumulation and output:
+    products of two bf16 values are exact in fp32, so these are the
+    reference's fp32 scores without an fp32 copy of the cache.  (CPU
+    torch has no such product; there the operands are upcast.)"""
+    if not q.is_cuda or q.dtype == torch.float32 or q.dtype != ck.dtype:
+        return torch.einsum("bqhk,bshk->bhqs", q.float(), ck.float())
+    b, s, h, dh = ck.shape
+    qm = q.permute(0, 2, 1, 3).reshape(b * h, 1, dh)
+    km = ck.permute(0, 2, 1, 3).reshape(b * h, s, dh).transpose(1, 2)
+    return torch.bmm(qm, km, out_dtype=torch.float32).view(b, h, 1, s)
+
+
 def _cached_attention(q, ck, cv, pos, pad_lo, cfg):
     """q [B,1,H,Dh] against the cache's columns pad_lo[b]..pos (fp32
     scores; columns past pos and left-padding are masked, not sliced).
@@ -80,7 +94,7 @@ def _cached_attention(q, ck, cv, pos, pad_lo, cfg):
     at its own depth)."""
     S = ck.shape[1]
     scale = cfg.head_dim ** -0.5
-    scores = torch.einsum("bqhk,bshk->bhqs", q.float(), ck.float()) * scale
+    scores = _scores_f32(q, ck) * scale
     cols = torch.arange(S, device=ck.device)
     pos_col = torch.as_tensor(pos, device=ck.device).reshape(-1, 1)
     mask = (cols[None, :] <= pos_col) & (cols[None, :] >= pad_lo[:, None])
@@ -123,8 +137,7 @@ def prefill(params: Dict, tokens, cfg, cache: Dict, prompt_lens=None):
         & ((cols[None, None, :] >= pad_lo[:, None, None])
            | (cols[None, None, :] == cols[None, :, None]))
     scale = cfg.head_dim ** -0.5
-    for i in range(cfg.n_layers):
-        lp = gpt.layer_params(params, i)
+    for i, lp in enumerate(gpt.layer_slices(params)):
         h = _rmsnorm(x, lp["ln1"])
         q, k, v = gpt._qkv(h, lp, cfg)
         cache["k"][i, :, :T] = k
@@ -157,8 +170,7 @@ def decode_step(params: Dict, token, pos, cache: Dict, cfg, pad_lo=None):
     positions = (pos - pad_lo)[:, None]  # logical position per row
     rows = torch.arange(B, device=dev)
     x = _embed(params, token[:, None], positions, cfg)
-    for i in range(cfg.n_layers):
-        lp = gpt.layer_params(params, i)
+    for i, lp in enumerate(gpt.layer_slices(params)):
         h = _rmsnorm(x, lp["ln1"])
         q, k, v = gpt._qkv(h, lp, cfg)
         if per_row:
@@ -219,9 +231,11 @@ def generate(params: Dict, prompt, cfg, *, max_new_tokens: int,
              temperature: float = 0.0, top_k: int = 0,
              generator: Optional[torch.Generator] = None,
              eos_token: Optional[int] = None, prompt_lens=None,
-             speculate_ngram: int = 0, speculate_k: int = 0):
+             speculate_ngram: int = 0, speculate_k: int = 0,
+             return_stats: bool = False):
     """prompt [B, T] -> generated tokens [B, max_new_tokens] (int64, on
-    the params' device).
+    the params' device); with `return_stats`, (tokens, stats), where stats
+    is None without speculation, as in the reference.
 
     temperature 0 = greedy; top_k > 0 restricts sampling; sampling draws
     from `generator` (default: a generator seeded with 0 on the params'
@@ -269,5 +283,5 @@ def generate(params: Dict, prompt, cfg, *, max_new_tokens: int,
         hit = out == eos_token
         cut = torch.where(hit.any(dim=1), hit.int().argmax(dim=1),
                           out.shape[1]).tolist()
-        return [row[:n] for row, n in zip(out, cut)]
-    return out
+        out = [row[:n] for row, n in zip(out, cut)]
+    return (out, None) if return_stats else out

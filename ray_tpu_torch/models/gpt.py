@@ -43,6 +43,12 @@ class GPTConfig:
     d_ff: int = 2048
     max_seq: int = 2048
     n_experts: int = 0          # only 0 (dense ffn) is ported
+    # The reference's MoE expert capacity (read only with n_experts > 0)
+    # and pipeline microbatches (read only under pipeline parallelism,
+    # pp > 1).  The single-device path reads neither, as the reference
+    # ignores both at pp = 1 without experts.
+    capacity_factor: float = 2.0
+    num_microbatches: int = 1
     dtype: torch.dtype = torch.bfloat16
     # Recompute activations in the backward (torch.utils.checkpoint).
     # "full": checkpoint the whole layer; the backward re-runs the layer's
@@ -126,9 +132,16 @@ def init_params(cfg: GPTConfig, generator: torch.Generator,
     }
 
 
-def layer_params(params: dict, i: int) -> dict:
-    """Layer i's slice of the stacked block parameters."""
-    return {k: w[i] for k, w in params["blocks"].items()}
+def layer_slices(params: dict) -> list:
+    """Each layer's slice of the stacked block parameters, taken once per
+    call: one `unbind` per stacked [L, ...] leaf, whose backward is one
+    `stack`, so each layer's gradient slice is written once (as the
+    reference's scan over the stacked leaves does).  Indexing w[i] per
+    layer would build and add a zero tensor the size of the whole leaf
+    in each layer's backward."""
+    blocks = params["blocks"]
+    per_leaf = {k: w.unbind(0) for k, w in blocks.items()}
+    return [dict(zip(per_leaf, ws)) for ws in zip(*per_leaf.values())]
 
 
 # ---------------------------------------------------------------------------
@@ -271,8 +284,8 @@ def hidden_states(params: dict, tokens, cfg: GPTConfig, mesh=None):
     t = tokens.shape[1]
     x = (params["wte"][tokens] + params["wpe"][:t]).to(cfg.dtype)
     layer = _make_layer_fn(cfg)
-    for i in range(cfg.n_layers):
-        x = layer(x, layer_params(params, i))
+    for lp in layer_slices(params):
+        x = layer(x, lp)
     return _rmsnorm(x, params["ln_f"])
 
 

@@ -21,350 +21,396 @@
 // path's shape (B=8, H=16, S=4096, Dh=128) that is 8.25e11 FLOP (0.834 ms at
 // 989 TFLOP/s bf16) against 675 MB moved once (0.202 ms at 3.35 TB/s) for
 // dq, and 1.10e12 FLOP (1.112 ms) against 810 MB (0.242 ms) for dk/dv: both
-// are bound by operations.  The design therefore keeps every product on the
-// tensor cores (mma.sync m16n8k16 bf16, f32 accumulation), keeps S, P, dP
-// and dS in registers (a product's accumulator layout is the next product's
-// A-fragment layout, so none of them touches shared or device memory), and
-// walks only the causal half of each row or column.
+// are bound by operations (PERF.md, section 6).
+//
+// What limits a flash backward on this card, and what this design does
+// about each:
+//   * Only wgmma reaches Hopper's full tensor-core rate (mma.sync does
+//     not): the products are wgmma m64n64k16, bf16 in, f32 accumulate.
+//     Two consumer warpgroups own 64 resident rows each, so a block keeps
+//     128 rows.
+//   * Loads issued by the computing threads cost them instructions and
+//     registers and hide little: copies go through TMA into a three-stage
+//     ring with full/empty mbarrier pairs, issued by one producer thread,
+//     so the next tiles land while the current one is computed.  Tiles use
+//     TMA's 128-byte swizzle, the layout wgmma's descriptors read without
+//     bank conflicts.
+//   * Registers: dk/dv holds two 64 x Dh f32 accumulators beside a 64-row
+//     streamed tile's S^T and dP^T.  setmaxnreg gives the consumers 240
+//     registers and drops the producer warpgroup to 24.
+//   * No transposes through shared memory.  S^T = K_j Q_i^T and
+//     dP^T = V_j dO_i^T (dk/dv), or S = Q K_j^T and dP = dO V_j^T (dq),
+//     read the streamed tile K-major.  Their f32 accumulators, turned into
+//     P and dS and rounded to bf16, are already in the register A-operand
+//     layout of the second products (dV += P^T dO_i, dK += dS^T Q_i;
+//     dQ += dS K_j), whose B operand is the same streamed tile read
+//     MN-major through wgmma's transpose bit.
+//   * Shared-memory bandwidth: a 64x64x16 wgmma with both operands in
+//     shared memory reads 4 KB in its 32 cycles, the SM's whole 128 bytes
+//     a cycle.  dq keeps its resident Q and dO rows in registers as A
+//     fragments, which halves that.  dk/dv keeps K and V in shared memory:
+//     beside its two accumulators it has no registers left for them.
+//   * Blocks of a few (batch, head) pairs run together, so that the tiles
+//     they stream come from L2 after the first read.
 //
 // Layout of the work, unlike the TPU grid (which keeps whole K/V or Q/dO
 // rows in VMEM and walks blocks in order on one core):
-//   * dq: one block per (batch*head, 64-row q tile), 4 warps of 16 query
-//     rows.  Q, dO, lse and delta of the tile stay resident; 64-row K and V
-//     tiles stream through a two-stage cp.async ring up to the causal
-//     frontier, and only the diagonal tile is masked.  K enters dS K as the
-//     B operand through ldmatrix.trans from the same tile that fed Q K^T.
-//   * dk/dv: one block per (batch*head, 64-row k/v tile j), 4 warps of 16
-//     key rows.  K_j and V_j stay resident; 32-row tiles of Q, dO, lse and
-//     delta stream through a two-stage ring from the diagonal to the end,
-//     and only the tiles that straddle the diagonal are masked.  Computing
-//     S^T = K_j Q_i^T directly leaves P^T and dS^T in registers as the A
-//     operand of dV += P^T dO_i and dK += dS^T Q_i: no transpose through
-//     shared memory.
-//   * Longest blocks first: the last q tiles for dq, the first k/v tiles
-//     for dk/dv.
+//   * dq: one block per (batch*head, 128-row q tile).  Q, dO, lse and delta
+//     stay resident; 64-row K_j, V_j tiles stream up to the causal frontier.
+//   * dk/dv: one block per (batch*head, 128-row k/v tile).  K_j, V_j stay
+//     resident; 64-row Q_i, dO_i tiles and their lse and delta stream from
+//     the diagonal to the end.
+//   * Causal work only: a warpgroup skips the streamed tiles that lie wholly
+//     outside its causal half, and masks only those that straddle the
+//     diagonal.  A 128-row tile past a sequence of odd 64-row length is
+//     ragged: TMA fills its missing rows with zeros, and the warpgroup that
+//     owns them computes and stores nothing.
+//   * Longest blocks first within each group of pairs, so that short
+//     blocks fill the tail.
 //   * No atomics: each output row is written by exactly one block, so two
-//     calls give bit-identical results.
-// Registers: the dk/dv kernel holds two f32 [16, Dh] accumulators a thread's
-// warp owns (2 * Dh/8 * 4 = 128 floats a thread at Dh=128) besides the
-// [16, BQ] S^T and dP^T tiles (2 * BQ/8 * 4 floats).  BQ = 32 keeps that
-// at 160 floats and compiles without spills; BQ = 64 spilled and ran slower
-// on an H100 (PERF.md).
-// wgmma, TMA and warp specialisation are not used yet.
+//     calls give bit-identical results.  A fused backward would sum dq
+//     across the k/v blocks with atomics, so dq stays a kernel of its own.
 //
 // Inputs may be strided views (the model hands it slices of its fused qkv
-// projection); the head dimension must be contiguous, rows 16-byte aligned.
+// projection, and dO in [B, S, H, D] order): the tensor maps are built per
+// call from each view's strides, which must be multiples of 16 bytes, with
+// a contiguous head dimension.
 
-#include "flash_common.cuh"
+#include "flash_sm90.cuh"
 
 namespace {
 
-constexpr int BWD_TILE = 64;  // q rows of a dq block, k/v rows of a dk/dv block
-constexpr int DKDV_BQ = 32;   // q rows streamed past a dk/dv block per step
+// 2^x in one MUFU instruction (results below 2^-126 flush to zero, far
+// below the bf16 rounding of P and dS), without exp2f's range handling,
+// which lengthened the exposed elementwise work (PERF.md).
+__device__ __forceinline__ float ex2_ftz(float x) {
+  float y;
+  asm("ex2.approx.ftz.f32 %0, %1;\n" : "=f"(y) : "f"(x));
+  return y;
+}
 
-// Element strides (batch, head, row) of q, k, v, dO and of the outputs
-// (dq, or dk and dv, which share one layout).
-struct BwdStrides {
-  long long qb, qh, qs, kb, kh, ks, vb, vh, vs, gb, gh, gs, ob, oh, os;
+constexpr int WG_ROWS = 64;                        // rows a consumer warpgroup owns
+constexpr int CONSUMERS = 2;                       // consumer warpgroups a block
+constexpr int BLOCK_ROWS = WG_ROWS * CONSUMERS;    // resident rows of a block
+constexpr int STREAM_ROWS = 64;                    // rows of a streamed tile
+constexpr int THREADS = 128 * (1 + CONSUMERS);     // producer warpgroup first
+constexpr int STAGES = 3;                          // depth of the streamed ring
+constexpr int PRODUCER_REGS = 24, CONSUMER_REGS = 240;
+
+// Shared memory in bytes: two resident tiles, STAGES pairs of streamed
+// tiles, STAGES pairs of streamed lse/delta rows (dk/dv), then the
+// barriers.  Each tile is D/64 swizzled sub-tiles of [rows, 64].
+template <int D>
+struct Smem {
+  static constexpr int RES_SUB = BLOCK_ROWS * 128;  // a resident sub-tile
+  static constexpr int STR_SUB = STREAM_ROWS * 128;  // a streamed sub-tile
+  static constexpr int RES = RES_SUB * (D / SW);
+  static constexpr int STR = STR_SUB * (D / SW);
+  static constexpr int ROWV = STREAM_ROWS * 4;  // lse or delta of a streamed tile
+  static constexpr int RES1 = 0, RES2 = RES;
+  static constexpr int STR1 = 2 * RES, STR2 = STR1 + STAGES * STR;
+  static constexpr int LSE = STR2 + STAGES * STR, DELTA = LSE + STAGES * ROWV;
+  static constexpr int BARS = DELTA + STAGES * ROWV;  // full[STAGES], empty[STAGES], resident
+  static constexpr int BYTES = BARS + (2 * STAGES + 1) * 8 + 1024;  // + alignment slack
 };
 
-template <int D, int BM, int BN>
-__global__ void __launch_bounds__(BM / 16 * 32)
-    flash_dq_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
-                    const bf16* __restrict__ v, const bf16* __restrict__ g,
-                    const float* __restrict__ lse, const float* __restrict__ delta,
-                    bf16* __restrict__ dq, int H, int S, float scale, BwdStrides st) {
-  constexpr int NT = BM / 16 * 32;
-  constexpr int LD = D + PAD;
-  extern __shared__ __align__(16) unsigned char smem_raw[];
-  bf16* sQ = reinterpret_cast<bf16*>(smem_raw);
-  bf16* sG = sQ + BM * LD;
-  bf16* sK = sG + BM * LD;  // two stages of BN rows
-  bf16* sV = sK + 2 * BN * LD;
-
-  const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
-  const int gr = lane >> 2, t4 = lane & 3;  // mma fragment row group / column pair
-  const int q_tile = gridDim.x - 1 - blockIdx.x;  // longest causal rows first
-  const int bh = blockIdx.y, b = bh / H, h = bh % H;
-  const int q0 = q_tile * BM;
-
-  const bf16* kp = k + b * st.kb + h * st.kh;
-  const bf16* vp = v + b * st.vb + h * st.vh;
-  load_tile<BM, D, NT>(sQ, q + b * st.qb + h * st.qh + (long long)q0 * st.qs, st.qs, tid);
-  load_tile<BM, D, NT>(sG, g + b * st.gb + h * st.gh + (long long)q0 * st.gs, st.gs, tid);
-  load_tile<BN, D, NT>(sK, kp, st.ks, tid);
-  load_tile<BN, D, NT>(sV, vp, st.vs, tid);
-  cp_async_commit();
-
-  const int wrow = q0 + warp * 16;  // first query row of this warp
-  const int row0 = wrow + gr;       // this thread's rows: row0 and row0 + 8
-  float lse2[2], dlt[2];            // lse in log2 units, delta
+// s[64 x 64] = A B^T over the head dim: A is this warpgroup's 64 rows of a
+// resident tile (descriptor `da`), B the 64-row streamed tile (`db`), both
+// K-major.  Within a 128-byte row a 16-column step is 32 bytes; every 64
+// columns the next sub-tile starts.
+template <int D, int A_SUB, int B_SUB>
+__device__ __forceinline__ void mma_rows_t(float (&s)[32], uint64_t da, uint64_t db) {
 #pragma unroll
-  for (int r = 0; r < 2; ++r) {
-    lse2[r] = lse[(long long)bh * S + row0 + 8 * r] * LOG2E;
-    dlt[r] = delta[(long long)bh * S + row0 + 8 * r];
+  for (int kk = 0; kk < D / 16; ++kk) {
+    wgmma_ss(s, desc_add(da, (kk / 4) * A_SUB + (kk % 4) * 32),
+             desc_add(db, (kk / 4) * B_SUB + (kk % 4) * 32), kk > 0);
   }
-  const float scale_log2 = scale * LOG2E;
+}
 
-  float acc[D / 8][4];
+// The same with A in registers (`a`, all D/16 k-steps of this warpgroup's
+// rows).
+template <int D, int B_SUB>
+__device__ __forceinline__ void mma_rows_t(float (&s)[32], uint32_t (&a)[D / 16][4], uint64_t db) {
 #pragma unroll
-  for (int i = 0; i < D / 8; ++i) acc[i][0] = acc[i][1] = acc[i][2] = acc[i][3] = 0.f;
+  for (int kk = 0; kk < D / 16; ++kk)
+    wgmma_rs<0>(s, a[kk], desc_add(db, (kk / 4) * B_SUB + (kk % 4) * 32), kk > 0);
+}
 
-  const bf16* sQw = sQ + warp * 16 * LD;
-  const bf16* sGw = sG + warp * 16 * LD;
-  const int n_kv = (q0 + BM - 1) / BN + 1;  // K/V tiles up to the causal frontier
+// acc[64 x D] += A X, A the [64 x 64] fragments `a` (k-steps of 16 along
+// the streamed rows), X the streamed [64, D] tile read MN-major (`dx`):
+// each 16-row step is 16 * 128 bytes on, each 64-column block a sub-tile.
+template <int D, int X_SUB>
+__device__ __forceinline__ void mma_frag_x(float (&acc)[D / SW][32], uint32_t (&a)[4][4],
+                                           uint64_t dx) {
+#pragma unroll
+  for (int kk = 0; kk < 4; ++kk)
+#pragma unroll
+    for (int c = 0; c < D / SW; ++c) wgmma_rs<1>(acc[c], a[kk], desc_add(dx, c * X_SUB + kk * 2048), 1);
+}
 
-  for (int j = 0; j < n_kv; ++j) {
-    // Tile j+1 streams into the other stage while tile j is computed.
-    if (j + 1 < n_kv) {
-      const int nxt = (j + 1) & 1;
-      load_tile<BN, D, NT>(sK + nxt * BN * LD, kp + (long long)(j + 1) * BN * st.ks, st.ks, tid);
-      load_tile<BN, D, NT>(sV + nxt * BN * LD, vp + (long long)(j + 1) * BN * st.vs, st.vs, tid);
-      cp_async_commit();
-      cp_async_wait<1>();
-    } else {
-      cp_async_wait<0>();
+// DQ: dq block.  Resident (res1, res2) = (Q, dO), streamed (str1, str2) =
+// (K, V); out1 = dq.  Else dk/dv block: resident (K, V), streamed (Q, dO)
+// with their lse and delta; out1 = dk, out2 = dv.  A warpgroup's rows are
+// the products' rows (queries for dq, keys for dk/dv), a streamed tile's
+// rows their columns.
+template <int D, bool DQ>
+__global__ void __launch_bounds__(THREADS, 1)
+    flash_bwd_kernel(const __grid_constant__ CUtensorMap res1,
+                     const __grid_constant__ CUtensorMap res2,
+                     const __grid_constant__ CUtensorMap str1,
+                     const __grid_constant__ CUtensorMap str2, const float* __restrict__ lse,
+                     const float* __restrict__ delta, bf16* __restrict__ out1,
+                     bf16* __restrict__ out2, int H, int S, float scale, long long ob,
+                     long long oh, long long os, int group) {
+  using L = Smem<D>;
+  extern __shared__ unsigned char smem_raw[];
+  unsigned char* smem = smem_aligned(smem_raw);
+  uint64_t* full = reinterpret_cast<uint64_t*>(smem + L::BARS);
+  uint64_t* empty = full + STAGES;
+  uint64_t* resident = empty + STAGES;
+
+  // Block order: (batch, head) pairs in groups of `group`, whose blocks
+  // run together so that the tiles they all stream stay in L2; within a
+  // group, longest first (for dq the last q tiles, for dk/dv the first k/v
+  // tiles), so that short blocks fill the tail.
+  const int n_tiles = (S + BLOCK_ROWS - 1) / BLOCK_ROWS;
+  const int n_bh = gridDim.x / n_tiles;
+  const int g0 = blockIdx.x / (group * n_tiles) * group;
+  const int g_size = min(group, n_bh - g0);
+  const int in_group = blockIdx.x - g0 * n_tiles;
+  const int rank = in_group / g_size;
+  const int bh = g0 + in_group % g_size, b = bh / H, h = bh % H;
+  const int r0 = (DQ ? n_tiles - 1 - rank : rank) * BLOCK_ROWS;
+  // The streamed tiles this block's rows see.
+  const int t_begin = DQ ? 0 : r0 / STREAM_ROWS;
+  const int t_end = DQ ? min(r0 + BLOCK_ROWS, S) / STREAM_ROWS : S / STREAM_ROWS;
+
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < STAGES; ++s) {
+      mbar_init(&full[s], 1);
+      mbar_init(&empty[s], 128 * CONSUMERS);
     }
-    __syncthreads();  // tile j (and Q, dO) have landed for every thread
-    const bf16* cK = sK + (j & 1) * BN * LD;
-    const bf16* cV = sV + (j & 1) * BN * LD;
+    mbar_init(resident, 1);
+    mbar_init_fence();
+  }
+  __syncthreads();
 
-    // S = Q K_j^T and dP = dO V_j^T for this warp's 16 rows.
-    float s[BN / 8][4], dp[BN / 8][4];
+  const int wg = threadIdx.x / 128;
+  if (wg == 0) {
+    // Producer: one thread issues every copy.
+    reg_dealloc<PRODUCER_REGS>();
+    if (threadIdx.x == 0) {
+      mbar_expect_tx(resident, 2 * L::RES);
 #pragma unroll
-    for (int nt = 0; nt < BN / 8; ++nt)
+      for (int c = 0; c < D / SW; ++c) {
+        tma_load_4d(smem + L::RES1 + c * L::RES_SUB, &res1, resident, c * SW, r0, h, b);
+        tma_load_4d(smem + L::RES2 + c * L::RES_SUB, &res2, resident, c * SW, r0, h, b);
+      }
+      int stage = 0, phase = 0;
+      for (int t = t_begin; t < t_end; ++t) {
+        mbar_wait(&empty[stage], phase ^ 1);
+        mbar_expect_tx(&full[stage], 2 * L::STR + (DQ ? 0 : 2 * L::ROWV));
 #pragma unroll
-      for (int e = 0; e < 4; ++e) s[nt][e] = dp[nt][e] = 0.f;
+        for (int c = 0; c < D / SW; ++c) {
+          tma_load_4d(smem + L::STR1 + stage * L::STR + c * L::STR_SUB, &str1, &full[stage],
+                      c * SW, t * STREAM_ROWS, h, b);
+          tma_load_4d(smem + L::STR2 + stage * L::STR + c * L::STR_SUB, &str2, &full[stage],
+                      c * SW, t * STREAM_ROWS, h, b);
+        }
+        if (!DQ) {
+          const long long row = (long long)bh * S + t * STREAM_ROWS;
+          bulk_load(smem + L::LSE + stage * L::ROWV, lse + row, L::ROWV, &full[stage]);
+          bulk_load(smem + L::DELTA + stage * L::ROWV, delta + row, L::ROWV, &full[stage]);
+        }
+        if (++stage == STAGES) {
+          stage = 0;
+          phase ^= 1;
+        }
+      }
+    }
+  } else {
+    // Consumers: warpgroup cw owns rows w0 .. w0 + 63.
+    reg_alloc<CONSUMER_REGS>();
+    const int cw = wg - 1, tid = threadIdx.x % 128;
+    const int warp = tid / 32, lane = tid % 32, g = lane / 4, t4 = lane % 4;
+    const int w0 = r0 + cw * WG_ROWS;
+    const int row0 = w0 + warp * 16 + g;  // this thread's rows: row0, row0 + 8
+    const bool active = w0 < S;           // false for the empty half of a ragged tile
+    const float scale_log2 = scale * LOG2E;
+
+    float lse2[2] = {0.f, 0.f}, dlt[2] = {0.f, 0.f};  // dq: per row, lse in log2 units
+    if (DQ && active) {
 #pragma unroll
-    for (int kk = 0; kk < D / 16; ++kk) {
-      uint32_t aq[4], ag[4];
-      load_a<LD>(aq, sQw, kk, gr, t4);
-      load_a<LD>(ag, sGw, kk, gr, t4);
-#pragma unroll
-      for (int nt = 0; nt < BN / 8; ++nt) {
-        uint32_t bk[2], bv[2];
-        load_bt<LD>(bk, cK, nt * 8, kk, gr, t4);
-        load_bt<LD>(bv, cV, nt * 8, kk, gr, t4);
-        mma_bf16(s[nt], aq, bk);
-        mma_bf16(dp[nt], ag, bv);
+      for (int r = 0; r < 2; ++r) {
+        lse2[r] = lse[(long long)bh * S + row0 + 8 * r] * LOG2E;
+        dlt[r] = delta[(long long)bh * S + row0 + 8 * r];
       }
     }
 
-    // dS = P (dP - delta) with P = exp(S * scale - lse), masked only where
-    // the tile reaches past this warp's first row (the diagonal tile).
-    const int k0 = j * BN;
-    const bool masked = k0 + BN - 1 > wrow;
+    float acc1[D / SW][32], acc2[D / SW][32];
 #pragma unroll
-    for (int nt = 0; nt < BN / 8; ++nt) {
+    for (int c = 0; c < D / SW; ++c)
 #pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const int r = e >> 1;
-        const int col = k0 + nt * 8 + t4 * 2 + (e & 1);
-        const float p = (masked && col > row0 + 8 * r)
-                            ? 0.f
-                            : exp2f(s[nt][e] * scale_log2 - lse2[r]);
-        s[nt][e] = p * (dp[nt][e] - dlt[r]);
+      for (int i = 0; i < 32; ++i) acc1[c][i] = acc2[c][i] = 0.f;
+
+    // The resident rows enter S and dP as the A operand: dq keeps them in
+    // registers (its one accumulator leaves the room), which halves the
+    // shared-memory reads of those products; dk/dv, with two accumulators,
+    // reads them from shared memory (K in registers spilled, PERF.md).
+    const uint64_t d_res1 = desc_sw128(smem + L::RES1 + cw * WG_ROWS * 128, 16, SW_ATOM);
+    const uint64_t d_res2 = desc_sw128(smem + L::RES2 + cw * WG_ROWS * 128, 16, SW_ATOM);
+    mbar_wait(resident, 0);
+    uint32_t f1[D / 16][4], f2[D / 16][4];
+    if (DQ) {
+      load_a_frags<D, L::RES_SUB>(f1, smem + L::RES1, cw * WG_ROWS + warp * 16, lane);
+      load_a_frags<D, L::RES_SUB>(f2, smem + L::RES2, cw * WG_ROWS + warp * 16, lane);
+    }
+
+    int stage = 0, phase = 0;
+    for (int t = t_begin; t < t_end; ++t) {
+      mbar_wait(&full[stage], phase);
+      const int c0 = t * STREAM_ROWS;  // first column (streamed row) of the tile
+      const bool skip = !active || (DQ ? c0 > w0 + WG_ROWS - 1 : c0 + STREAM_ROWS - 1 < w0);
+      if (!skip) {
+        unsigned char* x1 = smem + L::STR1 + stage * L::STR;
+        unsigned char* x2 = smem + L::STR2 + stage * L::STR;
+        float s[32], dp[32];
+        wgmma_fence();
+        if (DQ) {
+          mma_rows_t<D, L::STR_SUB>(s, f1, desc_sw128(x1, 16, SW_ATOM));
+          mma_rows_t<D, L::STR_SUB>(dp, f2, desc_sw128(x2, 16, SW_ATOM));
+        } else {
+          mma_rows_t<D, L::RES_SUB, L::STR_SUB>(s, d_res1, desc_sw128(x1, 16, SW_ATOM));
+          mma_rows_t<D, L::RES_SUB, L::STR_SUB>(dp, d_res2, desc_sw128(x2, 16, SW_ATOM));
+        }
+        wgmma_commit();
+        wgmma_wait<0>();
+        fence_regs(s);
+        fence_regs(dp);
+        if (DQ) {
+#pragma unroll
+          for (int kk = 0; kk < D / 16; ++kk) {
+            fence_regs(f1[kk]);
+            fence_regs(f2[kk]);
+          }
+        }
+
+        // P = exp(S * scale - lse) and dS = P (dP - delta), masked only on
+        // the tiles that straddle the diagonal.
+        const bool diag = DQ ? c0 + STREAM_ROWS - 1 > w0 : c0 < w0 + WG_ROWS - 1;
+        const float* tl = reinterpret_cast<const float*>(smem + L::LSE + stage * L::ROWV);
+        const float* td = reinterpret_cast<const float*>(smem + L::DELTA + stage * L::ROWV);
+#pragma unroll
+        for (int j = 0; j < 8; ++j) {
+          float2 lc = make_float2(0.f, 0.f), dc = lc;
+          if (!DQ) {
+            lc = *reinterpret_cast<const float2*>(tl + 8 * j + 2 * t4);
+            dc = *reinterpret_cast<const float2*>(td + 8 * j + 2 * t4);
+          }
+#pragma unroll
+          for (int e = 0; e < 4; ++e) {
+            const int row = row0 + 8 * (e >> 1), col = c0 + 8 * j + 2 * t4 + (e & 1);
+            const float l2 = DQ ? lse2[e >> 1] : ((e & 1) ? lc.y : lc.x) * LOG2E;
+            const float dl = DQ ? dlt[e >> 1] : ((e & 1) ? dc.y : dc.x);
+            const bool off = diag && (DQ ? col > row : col < row);
+            const float p = off ? 0.f : ex2_ftz(s[4 * j + e] * scale_log2 - l2);
+            s[4 * j + e] = p;
+            dp[4 * j + e] = p * (dp[4 * j + e] - dl);
+          }
+        }
+
+        // acc1 += dS X1 and (dk/dv) acc2 += P X2, dS and P rounded to bf16
+        // in registers as the A operand.
+        uint32_t a_ds[4][4], a_p[4][4];
+#pragma unroll
+        for (int kk = 0; kk < 4; ++kk) {
+          acc_to_a(a_ds[kk], &dp[8 * kk], &dp[8 * kk + 4]);
+          if (!DQ) acc_to_a(a_p[kk], &s[8 * kk], &s[8 * kk + 4]);
+        }
+#pragma unroll
+        for (int c = 0; c < D / SW; ++c) {
+          fence_regs(acc1[c]);
+          if (!DQ) fence_regs(acc2[c]);
+        }
+        wgmma_fence();
+        mma_frag_x<D, L::STR_SUB>(acc1, a_ds, desc_sw128(x1, L::STR_SUB, SW_ATOM));
+        if (!DQ) mma_frag_x<D, L::STR_SUB>(acc2, a_p, desc_sw128(x2, L::STR_SUB, SW_ATOM));
+        wgmma_commit();
+        wgmma_wait<0>();
+#pragma unroll
+        for (int c = 0; c < D / SW; ++c) {
+          fence_regs(acc1[c]);
+          if (!DQ) fence_regs(acc2[c]);
+        }
+#pragma unroll
+        for (int kk = 0; kk < 4; ++kk) {
+          fence_regs(a_ds[kk]);
+          if (!DQ) fence_regs(a_p[kk]);
+        }
+      }
+      mbar_arrive(&empty[stage]);
+      if (++stage == STAGES) {
+        stage = 0;
+        phase ^= 1;
       }
     }
 
-    // dQ += dS K_j, dS rounded to bf16 in registers.
+    if (active) {
 #pragma unroll
-    for (int kk = 0; kk < BN / 16; ++kk) {
-      uint32_t a[4];
-      acc_to_a(a, s[2 * kk], s[2 * kk + 1]);
-      mma_a_x<D, LD>(acc, a, cK, kk * 16, lane);
-    }
-    __syncthreads();  // every warp is done with stage j&1 before it is refilled
-  }
-
-  bf16* op = dq + b * st.ob + h * st.oh;
+      for (int r = 0; r < 2; ++r) {
+        const long long off = b * ob + h * oh + (long long)(row0 + 8 * r) * os + 2 * t4;
 #pragma unroll
-  for (int r = 0; r < 2; ++r) {
-    const int row = row0 + r * 8;
+        for (int c = 0; c < D / SW; ++c)
 #pragma unroll
-    for (int dt = 0; dt < D / 8; ++dt) {
-      *reinterpret_cast<uint32_t*>(op + row * st.os + dt * 8 + t4 * 2) =
-          pack_bf16(acc[dt][2 * r] * scale, acc[dt][2 * r + 1] * scale);
+          for (int j = 0; j < 8; ++j) {
+            const int col = c * SW + 8 * j;
+            *reinterpret_cast<uint32_t*>(out1 + off + col) =
+                pack_bf16(acc1[c][4 * j + 2 * r] * scale, acc1[c][4 * j + 2 * r + 1] * scale);
+            if (!DQ)
+              *reinterpret_cast<uint32_t*>(out2 + off + col) =
+                  pack_bf16(acc2[c][4 * j + 2 * r], acc2[c][4 * j + 2 * r + 1]);
+          }
+      }
     }
   }
 }
 
-template <int D, int BN, int BQ>
-__global__ void __launch_bounds__(BN / 16 * 32)
-    flash_dkdv_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
-                      const bf16* __restrict__ v, const bf16* __restrict__ g,
-                      const float* __restrict__ lse, const float* __restrict__ delta,
-                      bf16* __restrict__ dk, bf16* __restrict__ dv, int H, int S, float scale,
-                      BwdStrides st) {
-  constexpr int NT = BN / 16 * 32;
-  constexpr int LD = D + PAD;
-  static_assert(BN % BQ == 0 && BQ % 16 == 0, "q tiles must divide the k/v tile");
-  static_assert(BQ / 4 * 2 <= NT, "one thread per 16 bytes of lse and delta");
-  extern __shared__ __align__(16) unsigned char smem_raw[];
-  bf16* sK = reinterpret_cast<bf16*>(smem_raw);
-  bf16* sV = sK + BN * LD;
-  bf16* sQ = sV + BN * LD;  // two stages of BQ rows
-  bf16* sG = sQ + 2 * BQ * LD;
-  float* sL = reinterpret_cast<float*>(sG + 2 * BQ * LD);  // two stages of BQ
-  float* sD = sL + 2 * BQ;
+// Element strides (batch, head, row) of one [B, H, S, D] view.
+struct View {
+  const void* ptr;
+  long long sb, sh, ss;
+};
 
-  const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
-  const int gr = lane >> 2, t4 = lane & 3;
-  const int k_tile = blockIdx.x;  // the first k/v tiles see the most q tiles
-  const int bh = blockIdx.y, b = bh / H, h = bh % H;
-  const int k0 = k_tile * BN;
-
-  const bf16* qp = q + b * st.qb + h * st.qh;
-  const bf16* gp = g + b * st.gb + h * st.gh;
-  const float* lp = lse + (long long)bh * S;
-  const float* dlp = delta + (long long)bh * S;
-
-  // Q, dO, lse and delta of q tile i into stage `stage`.
-  auto load_q_tile = [&](int i, int stage) {
-    const long long r0 = (long long)i * BQ;
-    load_tile<BQ, D, NT>(sQ + stage * BQ * LD, qp + r0 * st.qs, st.qs, tid);
-    load_tile<BQ, D, NT>(sG + stage * BQ * LD, gp + r0 * st.gs, st.gs, tid);
-    if (tid < BQ / 4) {
-      cp_async16(sL + stage * BQ + tid * 4, lp + r0 + tid * 4);
-    } else if (tid < BQ / 2) {
-      cp_async16(sD + stage * BQ + (tid - BQ / 4) * 4, dlp + r0 + (tid - BQ / 4) * 4);
-    }
-  };
-
-  load_tile<BN, D, NT>(sK, k + b * st.kb + h * st.kh + (long long)k0 * st.ks, st.ks, tid);
-  load_tile<BN, D, NT>(sV, v + b * st.vb + h * st.vh + (long long)k0 * st.vs, st.vs, tid);
-  const int i0 = k0 / BQ, n_q = S / BQ;  // q tiles i0.. see these keys
-  load_q_tile(i0, 0);
-  cp_async_commit();
-
-  float acc_k[D / 8][4], acc_v[D / 8][4];
-#pragma unroll
-  for (int i = 0; i < D / 8; ++i)
-#pragma unroll
-    for (int e = 0; e < 4; ++e) acc_k[i][e] = acc_v[i][e] = 0.f;
-
-  const int wkey = k0 + warp * 16;  // first key row of this warp
-  const int key0 = wkey + gr;       // this thread's keys: key0 and key0 + 8
-  const bf16* sKw = sK + warp * 16 * LD;
-  const bf16* sVw = sV + warp * 16 * LD;
-  const float scale_log2 = scale * LOG2E;
-
-  for (int i = i0; i < n_q; ++i) {
-    const int stage = (i - i0) & 1;
-    if (i + 1 < n_q) {
-      load_q_tile(i + 1, stage ^ 1);
-      cp_async_commit();
-      cp_async_wait<1>();
-    } else {
-      cp_async_wait<0>();
-    }
-    __syncthreads();  // tile i (and K_j, V_j) have landed for every thread
-    const bf16* cQ = sQ + stage * BQ * LD;
-    const bf16* cG = sG + stage * BQ * LD;
-    const float* cL = sL + stage * BQ;
-    const float* cD = sD + stage * BQ;
-
-    // S^T = K_j Q_i^T and dP^T = V_j dO_i^T for this warp's 16 keys.
-    float s[BQ / 8][4], dp[BQ / 8][4];
-#pragma unroll
-    for (int nt = 0; nt < BQ / 8; ++nt)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) s[nt][e] = dp[nt][e] = 0.f;
-#pragma unroll
-    for (int kk = 0; kk < D / 16; ++kk) {
-      uint32_t ak[4], av[4];
-      load_a<LD>(ak, sKw, kk, gr, t4);
-      load_a<LD>(av, sVw, kk, gr, t4);
-#pragma unroll
-      for (int nt = 0; nt < BQ / 8; ++nt) {
-        uint32_t bq[2], bg[2];
-        load_bt<LD>(bq, cQ, nt * 8, kk, gr, t4);
-        load_bt<LD>(bg, cG, nt * 8, kk, gr, t4);
-        mma_bf16(s[nt], ak, bq);
-        mma_bf16(dp[nt], av, bg);
-      }
-    }
-
-    // P^T and dS^T; masked only where some query of the tile precedes some
-    // key of this warp (the tiles that straddle the diagonal).
-    const int q0 = i * BQ;
-    const bool masked = q0 < wkey + 15;
-#pragma unroll
-    for (int nt = 0; nt < BQ / 8; ++nt) {
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const int c = nt * 8 + t4 * 2 + (e & 1);  // query within the tile
-        const float p = (masked && q0 + c < key0 + 8 * (e >> 1))
-                            ? 0.f
-                            : exp2f(s[nt][e] * scale_log2 - cL[c] * LOG2E);
-        s[nt][e] = p;
-        dp[nt][e] = p * (dp[nt][e] - cD[c]);
-      }
-    }
-
-    // dV += P^T dO_i and dK += dS^T Q_i, P^T and dS^T rounded to bf16.
-#pragma unroll
-    for (int kk = 0; kk < BQ / 16; ++kk) {
-      uint32_t a[4];
-      acc_to_a(a, s[2 * kk], s[2 * kk + 1]);
-      mma_a_x<D, LD>(acc_v, a, cG, kk * 16, lane);
-      acc_to_a(a, dp[2 * kk], dp[2 * kk + 1]);
-      mma_a_x<D, LD>(acc_k, a, cQ, kk * 16, lane);
-    }
-    __syncthreads();  // every warp is done with this stage before it is refilled
+// Build the four tensor maps (resident tiles of 128 rows, streamed of 64)
+// and launch; cudaErrorInvalidValue if a map is refused.
+template <int D, bool DQ>
+cudaError_t launch(View r1, View r2, View s1, View s2, const void* lse, const void* delta,
+                   void* out1, void* out2, int B, int H, int S, float scale, long long ob,
+                   long long oh, long long os, cudaStream_t stream) {
+  CUtensorMap m[4];
+  const View views[4] = {r1, r2, s1, s2};
+  for (int i = 0; i < 4; ++i) {
+    if (!make_tile_map(&m[i], views[i].ptr, B, H, S, D, views[i].sb, views[i].sh, views[i].ss,
+                       i < 2 ? BLOCK_ROWS : STREAM_ROWS))
+      return cudaErrorInvalidValue;
   }
-
-  bf16* kout = dk + b * st.ob + h * st.oh;
-  bf16* vout = dv + b * st.ob + h * st.oh;
-#pragma unroll
-  for (int r = 0; r < 2; ++r) {
-    const long long off = (long long)(key0 + r * 8) * st.os + t4 * 2;
-#pragma unroll
-    for (int dt = 0; dt < D / 8; ++dt) {
-      *reinterpret_cast<uint32_t*>(kout + off + dt * 8) =
-          pack_bf16(acc_k[dt][2 * r] * scale, acc_k[dt][2 * r + 1] * scale);
-      *reinterpret_cast<uint32_t*>(vout + off + dt * 8) =
-          pack_bf16(acc_v[dt][2 * r], acc_v[dt][2 * r + 1]);
-    }
-  }
-}
-
-template <typename Kernel>
-cudaError_t set_smem(Kernel kern, int smem) {
-  return cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
-}
-
-template <int D>
-cudaError_t launch_dq(const void* q, const void* k, const void* v, const void* g,
-                      const void* lse, const void* delta, void* dq, int B, int H, int S,
-                      float scale, const BwdStrides& st, cudaStream_t stream) {
-  constexpr int BM = BWD_TILE, BN = BWD_TILE;
-  constexpr int smem = (2 * BM + 4 * BN) * (D + PAD) * sizeof(bf16);
-  auto kern = flash_dq_kernel<D, BM, BN>;
-  cudaError_t err = set_smem(kern, smem);
+  constexpr int smem = Smem<D>::BYTES;
+  auto kern = flash_bwd_kernel<D, DQ>;
+  cudaError_t err =
+      cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (err != cudaSuccess) return err;
-  kern<<<dim3(S / BM, B * H), BM / 16 * 32, smem, stream>>>(
-      static_cast<const bf16*>(q), static_cast<const bf16*>(k), static_cast<const bf16*>(v),
-      static_cast<const bf16*>(g), static_cast<const float*>(lse),
-      static_cast<const float*>(delta), static_cast<bf16*>(dq), H, S, scale, st);
+  // Pairs a group: their four [S, D] tensors in about 16 MB of the 50 MB L2.
+  const long long fit = (16LL << 20) / (4LL * S * D * sizeof(bf16));
+  int group = fit < 1 ? 1 : (fit > B * H ? B * H : static_cast<int>(fit));
+  const int n_tiles = (S + BLOCK_ROWS - 1) / BLOCK_ROWS;
+  kern<<<B * H * n_tiles, THREADS, smem, stream>>>(
+      m[0], m[1], m[2], m[3], static_cast<const float*>(lse), static_cast<const float*>(delta),
+      static_cast<bf16*>(out1), static_cast<bf16*>(out2), H, S, scale, ob, oh, os, group);
   return cudaGetLastError();
 }
 
-template <int D>
-cudaError_t launch_dkdv(const void* q, const void* k, const void* v, const void* g,
-                        const void* lse, const void* delta, void* dk, void* dv, int B, int H,
-                        int S, float scale, const BwdStrides& st, cudaStream_t stream) {
-  constexpr int BN = BWD_TILE, BQ = DKDV_BQ;
-  constexpr int smem = (2 * BN + 4 * BQ) * (D + PAD) * sizeof(bf16) + 4 * BQ * sizeof(float);
-  auto kern = flash_dkdv_kernel<D, BN, BQ>;
-  cudaError_t err = set_smem(kern, smem);
-  if (err != cudaSuccess) return err;
-  kern<<<dim3(S / BN, B * H), BN / 16 * 32, smem, stream>>>(
-      static_cast<const bf16*>(q), static_cast<const bf16*>(k), static_cast<const bf16*>(v),
-      static_cast<const bf16*>(g), static_cast<const float*>(lse),
-      static_cast<const float*>(delta), static_cast<bf16*>(dk), static_cast<bf16*>(dv), H, S,
-      scale, st);
-  return cudaGetLastError();
+bool shape_ok(int B, int H, int S) {
+  return B >= 1 && H >= 1 && S >= STREAM_ROWS && S % STREAM_ROWS == 0;
 }
 
 }  // namespace
@@ -372,7 +418,8 @@ cudaError_t launch_dkdv(const void* q, const void* k, const void* v, const void*
 // q, k, v, g (= dO), dq: [B, H, S, D] bf16 views with the given element
 // strides (batch, head, row; the head dimension is contiguous).  lse, delta:
 // [B, H, S] f32, contiguous.  Returns a cudaError_t: cudaErrorInvalidValue
-// for a shape the kernel does not take, else the launch's cudaGetLastError().
+// for a shape or layout the kernel does not take, else the launch's
+// cudaGetLastError().
 extern "C" int flash_dq_bf16(const void* q, const void* k, const void* v, const void* g,
                              const void* lse, const void* delta, void* dq, int B, int H, int S,
                              int D, float scale, long long qb, long long qh, long long qs,
@@ -380,11 +427,13 @@ extern "C" int flash_dq_bf16(const void* q, const void* k, const void* v, const 
                              long long vh, long long vs, long long gb, long long gh,
                              long long gs, long long ob, long long oh, long long os,
                              void* stream) {
-  if (B < 1 || H < 1 || S < 1 || S % BWD_TILE != 0) return cudaErrorInvalidValue;
-  const BwdStrides st{qb, qh, qs, kb, kh, ks, vb, vh, vs, gb, gh, gs, ob, oh, os};
+  if (!shape_ok(B, H, S)) return cudaErrorInvalidValue;
+  const View Q{q, qb, qh, qs}, K{k, kb, kh, ks}, V{v, vb, vh, vs}, G{g, gb, gh, gs};
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (D == 128) return launch_dq<128>(q, k, v, g, lse, delta, dq, B, H, S, scale, st, s);
-  if (D == 64) return launch_dq<64>(q, k, v, g, lse, delta, dq, B, H, S, scale, st, s);
+  if (D == 128)
+    return launch<128, true>(Q, G, K, V, lse, delta, dq, nullptr, B, H, S, scale, ob, oh, os, s);
+  if (D == 64)
+    return launch<64, true>(Q, G, K, V, lse, delta, dq, nullptr, B, H, S, scale, ob, oh, os, s);
   return cudaErrorInvalidValue;
 }
 
@@ -396,10 +445,34 @@ extern "C" int flash_dkdv_bf16(const void* q, const void* k, const void* v, cons
                                long long vb, long long vh, long long vs, long long gb,
                                long long gh, long long gs, long long ob, long long oh,
                                long long os, void* stream) {
-  if (B < 1 || H < 1 || S < 1 || S % BWD_TILE != 0) return cudaErrorInvalidValue;
-  const BwdStrides st{qb, qh, qs, kb, kh, ks, vb, vh, vs, gb, gh, gs, ob, oh, os};
+  if (!shape_ok(B, H, S)) return cudaErrorInvalidValue;
+  const View Q{q, qb, qh, qs}, K{k, kb, kh, ks}, V{v, vb, vh, vs}, G{g, gb, gh, gs};
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (D == 128) return launch_dkdv<128>(q, k, v, g, lse, delta, dk, dv, B, H, S, scale, st, s);
-  if (D == 64) return launch_dkdv<64>(q, k, v, g, lse, delta, dk, dv, B, H, S, scale, st, s);
+  if (D == 128)
+    return launch<128, false>(K, V, Q, G, lse, delta, dk, dv, B, H, S, scale, ob, oh, os, s);
+  if (D == 64)
+    return launch<64, false>(K, V, Q, G, lse, delta, dk, dv, B, H, S, scale, ob, oh, os, s);
   return cudaErrorInvalidValue;
+}
+
+// cudaFuncGetAttributes of the dq (dq != 0) or dk/dv kernel for head dim
+// D, into out[5]: registers a thread at launch (before setmaxnreg), static
+// shared memory bytes a block, local (spill) bytes a thread, the most
+// threads a block may have, and the most dynamic shared memory a block may
+// have, which after a launch is what launch() set for it.
+extern "C" int flash_bwd_attributes(int D, int dq, int* out) {
+  cudaFuncAttributes a;
+  cudaError_t err = cudaErrorInvalidValue;
+  if (D == 128)
+    err = dq ? cudaFuncGetAttributes(&a, flash_bwd_kernel<128, true>)
+             : cudaFuncGetAttributes(&a, flash_bwd_kernel<128, false>);
+  else if (D == 64)
+    err = dq ? cudaFuncGetAttributes(&a, flash_bwd_kernel<64, true>)
+             : cudaFuncGetAttributes(&a, flash_bwd_kernel<64, false>);
+  if (err != cudaSuccess) return err;
+  const int vals[5] = {a.numRegs, static_cast<int>(a.sharedSizeBytes),
+                       static_cast<int>(a.localSizeBytes), a.maxThreadsPerBlock,
+                       a.maxDynamicSharedSizeBytes};
+  for (int i = 0; i < 5; ++i) out[i] = vals[i];
+  return cudaSuccess;
 }

@@ -1,8 +1,10 @@
-// Device helpers shared by the flash-attention kernels (flash_fwd.cu,
-// flash_bwd.cu): cp.async tile loads, mma.sync m16n8k16 bf16 with f32
-// accumulation, ldmatrix.trans, bf16 packing.  Each kernel source is its own
-// shared library, so each gets its own copy of `rtt_cuda_error_string`,
-// which the ctypes loader (ops/_build.py) binds in every library.
+// Device helpers shared by the flash-attention kernels: cp.async tile
+// loads, mma.sync m16n8k16 bf16 with f32 accumulation and ldmatrix.trans
+// (flash_fwd.cu), bf16 packing and the accumulator-to-A-fragment layout
+// (both kernels; flash_bwd.cu through flash_sm90.cuh).  Each kernel source
+// is its own shared library, so each gets its own copy of
+// `rtt_cuda_error_string`, which the ctypes loader (ops/_build.py) binds in
+// every library.
 
 #pragma once
 
@@ -79,27 +81,6 @@ __device__ __forceinline__ void load_tile(bf16* dst, const bf16* src, long long 
   }
 }
 
-// The A fragment (16x16, row-major) of a warp's 16 rows at column block kk
-// of a shared-memory tile with row stride LD (g = lane / 4, t4 = lane % 4).
-template <int LD>
-__device__ __forceinline__ void load_a(uint32_t* a, const bf16* rows, int kk, int g, int t4) {
-  const bf16* p = rows + g * LD + kk * 16 + t4 * 2;
-  a[0] = ld_u32(p);
-  a[1] = ld_u32(p + 8 * LD);
-  a[2] = ld_u32(p + 8);
-  a[3] = ld_u32(p + 8 * LD + 8);
-}
-
-// The B fragment of X^T (16x8) for rows n0..n0+7 of a row-major X tile, at
-// column block kk: X's rows are the product's columns.
-template <int LD>
-__device__ __forceinline__ void load_bt(uint32_t* b, const bf16* tile, int n0, int kk, int g,
-                                        int t4) {
-  const bf16* p = tile + (n0 + g) * LD + kk * 16 + t4 * 2;
-  b[0] = ld_u32(p);
-  b[1] = ld_u32(p + 8);
-}
-
 // The S accumulators of two neighbouring 16x8 tiles, rounded to bf16, as the
 // A fragment of one 16x16 tile: a product's output feeds the next product
 // without leaving registers.
@@ -108,23 +89,6 @@ __device__ __forceinline__ void acc_to_a(uint32_t* a, const float* lo, const flo
   a[1] = pack_bf16(lo[2], lo[3]);
   a[2] = pack_bf16(hi[0], hi[1]);
   a[3] = pack_bf16(hi[2], hi[3]);
-}
-
-// acc[D/8][4] += A (16 x 16, fragment a) * X[k0..k0+15, 0..D) for a
-// row-major X tile in shared memory, X entering as the B operand through
-// ldmatrix.trans.
-template <int D, int LD>
-__device__ __forceinline__ void mma_a_x(float (*acc)[4], const uint32_t* a, const bf16* tile,
-                                        int k0, int lane) {
-  const int mi = lane >> 3;
-  const bf16* row = tile + (k0 + (mi & 1) * 8 + (lane & 7)) * LD + (mi >> 1) * 8;
-#pragma unroll
-  for (int dt = 0; dt < D / 16; ++dt) {
-    uint32_t bb[4];
-    ldmatrix_x4_trans(bb, row + dt * 16);
-    mma_bf16(acc[2 * dt], a, bb);
-    mma_bf16(acc[2 * dt + 1], a, bb + 2);
-  }
 }
 
 }  // namespace

@@ -32,8 +32,9 @@ DEFAULT_BLOCK_K = 512
 KERNEL_TILES = (64, 128)
 KERNEL_HEAD_DIMS = (64, 128)
 KERNEL_DTYPES = (torch.bfloat16,)
-# The backward's own tile (csrc/flash_bwd.cu): 64-row q tiles for dq and
-# k/v tiles for dk/dv, which every sequence supports() takes divides.
+# The backward's streamed tile (csrc/flash_bwd.cu), which every sequence
+# supports() takes divides; its resident 128-row tiles take a ragged last
+# tile where 128 does not divide the sequence.
 BWD_TILE = 64
 
 # Kernel launches since the counts were last set to 0, by kernel (only the
@@ -152,16 +153,20 @@ def _bind(lib_name: str, fn_name: str, n_ptrs: int, n_ints: int,
     return lib, fn
 
 
-def _fits_kernel_layout(t) -> bool:
-    # cp.async moves 16-byte rows: 8 bf16 elements, 16-byte aligned.
-    return (t.stride(-1) == 1 and all(st % 8 == 0 for st in t.stride()[:3])
-            and t.data_ptr() % 16 == 0)
+def _fits_kernel_layout(t, tma: bool = False) -> bool:
+    # cp.async (forward) and TMA (backward) move 16-byte rows: 8 bf16
+    # elements, 16-byte aligned; TMA also steps every dimension longer than
+    # one by a positive stride.
+    return (t.stride(-1) == 1 and t.data_ptr() % 16 == 0
+            and all(st % 8 == 0 and (st > 0 or n == 1 or not tma)
+                    for st, n in zip(t.stride()[:3], t.shape[:3])))
 
 
-def _check_kernel_inputs(block_q, block_k, **tensors):
+def _check_kernel_inputs(block_q, block_k, tma=False, **tensors):
     """Raise unless the named [B, H, S, D] tensors lie on one CUDA device,
     share one shape and dtype that the kernels take, and each has a
-    contiguous head dim and 16-byte aligned rows."""
+    contiguous head dim and 16-byte aligned rows (and, for the TMA loads
+    of the backward, positive strides)."""
     ts = list(tensors.values())
     q = ts[0]
     if not all(t.is_cuda and t.device == q.device for t in ts):
@@ -177,10 +182,11 @@ def _check_kernel_inputs(block_q, block_k, **tensors):
             f"the Hopper flash kernels do not take seq_len={s}, "
             f"head_dim={d}, dtype={q.dtype} (see supports())")
     for name, t in tensors.items():
-        if not _fits_kernel_layout(t):
+        if not _fits_kernel_layout(t, tma):
             raise ValueError(f"{name} needs a contiguous head dim and "
-                             f"16-byte aligned rows, got strides "
-                             f"{t.stride()}")
+                             f"16-byte aligned rows"
+                             f"{', with positive strides' if tma else ''}, "
+                             f"got strides {t.stride()}")
 
 
 def _check_rowwise(lse, delta, q):
@@ -244,7 +250,8 @@ def flash_dq(q, k, v, g, lse, delta, scale):
     CPU: its plain version."""
     if not q.is_cuda:
         return flash_dq_reference(q, k, v, g, lse, delta, scale)
-    _check_kernel_inputs(BWD_TILE, BWD_TILE, q=q, k=k, v=v, g=g)
+    _check_kernel_inputs(BWD_TILE, BWD_TILE, tma=True, q=q, k=k, v=v,
+                         g=g)
     _check_rowwise(lse, delta, q)
     b, h, s, d = q.shape
     dq = _empty_like_out(q)
@@ -260,7 +267,8 @@ def flash_dkdv(q, k, v, g, lse, delta, scale):
     kernel (g as for flash_dq); CPU: its plain version."""
     if not q.is_cuda:
         return flash_dkdv_reference(q, k, v, g, lse, delta, scale)
-    _check_kernel_inputs(BWD_TILE, BWD_TILE, q=q, k=k, v=v, g=g)
+    _check_kernel_inputs(BWD_TILE, BWD_TILE, tma=True, q=q, k=k, v=v,
+                         g=g)
     _check_rowwise(lse, delta, q)
     b, h, s, d = q.shape
     dk, dv = _empty_like_out(k), _empty_like_out(v)
@@ -280,7 +288,7 @@ def flash_attention_bwd(q, k, v, out, lse, g, scale=None):
     (autograd may hand over zero or odd strides) is first copied into a
     contiguous layout.  On CPU it runs their plain versions."""
     scale = scale or q.shape[-1] ** -0.5
-    if q.is_cuda and not _fits_kernel_layout(g):
+    if q.is_cuda and not _fits_kernel_layout(g, tma=True):
         g = g.contiguous()
     delta = _delta(out, g)
     dq = flash_dq(q, k, v, g, lse, delta, scale)
