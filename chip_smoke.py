@@ -10,10 +10,17 @@ Phases, each of which raises on failure (the script then exits non-zero):
 1. build    -- compile every kernel of the port from csrc/ with nvcc
                (sm_90a), printing each variant's registers and spills.
 2. kernel   -- hold the flash-attention forward kernel against its plain
-               PyTorch version (out and lse) at the main path's shapes, time
-               it beside its bound, the plain version and one PyTorch call
-               computing the same function (the yardstick, never used by
-               the port).
+               PyTorch version (out and lse) at six shapes: head dims 64
+               and 128, 4 and 16 heads, the ragged S = 2880, the serving
+               forward's (2, 16, 4096, 128) and the training path's
+               (8, 16, 4096, 128), one batch slice at a time; two calls
+               give the same bits; an expanded (zero-stride) input still
+               runs the kernel; an fp32 input raises.  Time it at the two
+               main shapes beside its bound, the plain version (B=2) and
+               one PyTorch call computing the same function (the
+               yardstick, never used by the port); its registers and
+               shared memory a block (cudaFuncGetAttributes), with no
+               spills.
 3. forward  -- the long-sequence GPT of bench.py (vocab 32000, d_model 2048,
                16 heads of 128, 12 layers, d_ff 8192, max_seq 4096, bf16 on
                fp32 params, random weights from --seed) at B=2, T=4096: one
@@ -80,9 +87,16 @@ SERVE_LENS, SERVE_WIDTH, SERVE_NEW = (128, 384, 640, 1024), 1024, 64
 # bench.py's long-sequence training run: B=8, T=4096, remat "full", flash
 # attention, full logits (loss_chunk 0), AdamW at 3e-4.
 TRAIN_BATCH, TRAIN_SEQ, TRAIN_STEPS, TRAIN_LR = 8, 4096, 5, 3e-4
+# The forward kernel's shapes: head dim 64, 4 and 16 heads, a sequence
+# whose last 128-row tile is ragged, the serving forward's shape (B=2,
+# timed) and the training path's (B=8, timed).
+FWD_MAIN = (FWD_BATCH, 16, FWD_SEQ, 128)
+FWD_TRAIN = (TRAIN_BATCH, 16, TRAIN_SEQ, 128)
+FWD_SHAPES = ((1, 4, 1024, 64), (1, 4, 1024, 128), (1, 16, 1024, 128),
+              (1, 16, 2880, 128), FWD_MAIN, FWD_TRAIN)
 # The backward kernels at the training path's shape (B=8; timed there), the
-# forward's shape of phase 2, a short one, one where the forward steps
-# down to 64-row tiles, and head_dim 64.  The dense plain versions run one
+# forward's shape of phase 2, a short one, one whose last 128-row tile is
+# ragged, and head_dim 64.  The dense plain versions run one
 # batch slice at a time, so that their [H, S, S] f32 tensors fit.
 BWD_SHAPES = ((TRAIN_BATCH, 16, TRAIN_SEQ, 128), (2, 16, 4096, 128),
               (1, 16, 1024, 128), (1, 16, 2880, 128), (1, 16, 1024, 64))
@@ -221,10 +235,10 @@ def phase_build():
           f"{time.perf_counter() - t0:.1f} s "
           f"(nvcc {' '.join(_build.NVCC_FLAGS)})")
     # ptxas -v, per compiled kernel: registers per thread and spills; the
-    # template arguments in source order (<D, BM, BN> for flash_fwd, <D,
-    # dq or dkdv> for flash_bwd, whose count is the launch's: setmaxnreg
-    # then moves registers between its warpgroups, as flash_bwd.cu's
-    # PRODUCER_REGS and CONSUMER_REGS ask).
+    # template arguments in source order (<D> for flash_fwd, <D, dq or
+    # dkdv> for flash_bwd).  The count is the launch's: setmaxnreg then
+    # moves registers between the warpgroups of both, as flash_sm90.cuh's
+    # PRODUCER_REGS and CONSUMER_REGS ask.
     for name, log in logs.items():
         for fn, spill, regs in re.findall(
                 r"Compiling entry function '([^']+)'.*?"
@@ -255,62 +269,111 @@ def _fwd_errors(what, q, k, v, out, lse):
     return e_out, e_lse
 
 
-def _flash_errors(what, q, k, v, block_q, block_k):
-    """Run the kernel on q, k, v and hold it against its plain version."""
-    out, lse = fa.flash_attention_fwd(q, k, v, None, block_q, block_k)
-    e_out, e_lse = _fwd_errors(what, q, k, v, out, lse)
+def _check_forward(what, q, k, v):
+    """Run the kernel on q, k, v, hold it against its plain version batch
+    slice by batch slice, and check that a second call gives the same
+    bits.  Returns (max |out err|, max |lse err|)."""
+    out, lse = fa.flash_attention_fwd(q, k, v)
+    e_out = e_lse = 0.0
+    for i, (qi, ki, vi, oi, li) in enumerate(_slices(q.shape[0], q, k, v,
+                                                     out, lse)):
+        eo, el = _fwd_errors(f"{what} slice {i}", qi, ki, vi, oi, li)
+        e_out, e_lse = max(e_out, eo), max(e_lse, el)
+    again = fa.flash_attention_fwd(q, k, v)
+    _require(torch.equal(out, again[0]) and torch.equal(lse, again[1]),
+             f"{what}: two forward calls differ")
     print(f"[kernel] {what}: max |out| err {e_out:.3e}, max |lse| err "
-          f"{e_lse:.3e}")
+          f"{e_lse:.3e}, bit-identical across two calls")
     return e_out, e_lse
 
 
+def _time_forward(shape, q, k, v, plain: bool):
+    """CUDA-event times of the kernel, its plain version (if `plain`) and
+    the SDPA forward (the yardstick) on q, k, v, beside the bound."""
+    row = dict(shape=list(shape),
+               ms=_ms(lambda: fa.flash_attention_fwd(q, k, v)),
+               library_ms=_ms(lambda: F.scaled_dot_product_attention(
+                   q, k, v, is_causal=True)))
+    if plain:
+        row["plain_ms"] = _ms(lambda: fa.flash_attention_reference(q, k, v),
+                              iters=3, warmup=1)
+    row["bound_ms"], row["bound_by"] = _flash_bound(*shape)
+    return row
+
+
+def _check_expanded_input(gen):
+    """k and v shared by every head (stride 0 over heads), as an expanded
+    tensor: the wrapper copies them for the TMA loads and still launches
+    the kernel once, never the plain version."""
+    q, k, v = _qkv_views(gen, 1, 4, 1024, 128)
+    k, v = (x[:, :1].expand_as(q) for x in (k, v))
+    _require(k.stride(1) == 0 and not fa._fits_kernel_layout(k),
+             "the expanded input has no zero stride")
+    before = fa.launches["flash_fwd"]
+    out, lse = fa.flash_attention_fwd(q, k, v)
+    torch.cuda.synchronize()
+    n = fa.launches["flash_fwd"] - before
+    _require(n == 1, f"expanded input: {n} kernel launches, not 1")
+    e_out, e_lse = _fwd_errors("expanded k, v", q, k, v, out, lse)
+    print(f"[kernel] expanded (zero-stride) k, v at (1, 4, 1024, 128): 1 "
+          f"launch, max |out| err {e_out:.3e}, max |lse| err {e_lse:.3e}")
+
+
+def _kernel_attributes(lib_name, fn_name, what, cases):
+    """{case: attributes} of a kernel source's variants, as
+    cudaFuncGetAttributes reads them after their launches: registers a
+    thread at launch (before setmaxnreg), static shared memory a block,
+    spilled bytes a thread, the most threads a block may have, and the
+    dynamic shared memory a block was given.  `cases` maps each case to
+    the C function's leading int arguments; raises on any spill."""
+    import ctypes
+    lib = _build.load(lib_name)
+    fn = getattr(lib, fn_name)
+    fn.restype = ctypes.c_int
+    keys = ("launch_registers", "static_smem_bytes", "local_bytes",
+            "max_threads_per_block", "dynamic_smem_bytes")
+    found = {}
+    for case, args in cases.items():
+        fn.argtypes = [ctypes.c_int] * len(args) + [
+            ctypes.POINTER(ctypes.c_int)]
+        out = (ctypes.c_int * len(keys))()
+        _build.check(lib, fn(*args, out), fn_name)
+        found[case] = dict(zip(keys, out))
+        print(f"[{what}] {lib_name}<{','.join(map(str, case))}> attributes: "
+              f"{json.dumps(found[case])}")
+    _require(all(a["local_bytes"] == 0 for a in found.values()),
+             f"a {lib_name} kernel spills to local memory")
+    return found
+
+
 def phase_kernel(gen):
-    # Every compiled tile shape and head dim against the plain version.
-    for d in fa.KERNEL_HEAD_DIMS:
-        q, k, v = _qkv_views(gen, 1, 4, 1024, d)
-        for bq in fa.KERNEL_TILES:
-            for bk in fa.KERNEL_TILES:
-                _flash_errors(f"(1, 4, 1024, {d}) tiles {bq}x{bk}", q, k, v,
-                              bq, bk)
+    errs, rows = [], {}
+    for shape in FWD_SHAPES:
+        q, k, v = _qkv_views(gen, *shape)
+        errs.append(_check_forward(str(shape), q, k, v))
+        if shape in (FWD_MAIN, FWD_TRAIN):
+            rows[shape] = _time_forward(shape, q, k, v,
+                                        plain=shape == FWD_MAIN)
+            print(f"[kernel] {json.dumps(rows[shape])}")
+        del q, k, v
+    _check_expanded_input(gen)
     # The kernel takes bf16 only: an fp32 CUDA input raises, it never
     # falls back to the plain version.
+    q, k, v = _qkv_views(gen, 1, 4, 1024, 128)
     try:
         fa.flash_attention(q.float(), k.float(), v.float())
     except ValueError:
         pass
     else:
         raise SmokeFailure("fp32 CUDA input did not raise")
-
-    # The main path's shapes (T = 4096 and 1024), and one (2880) where
-    # _fit_block steps the 512 default down to 64-row tiles.
-    rows = {}
-    for shape in ((2, 16, 4096, 128), (1, 16, 1024, 128),
-                  (1, 16, 2880, 128)):
-        b, h, s, d = shape
-        q, k, v = _qkv_views(gen, *shape)
-        e_out, e_lse = _flash_errors(f"{shape} default blocks", q, k, v,
-                                     fa.DEFAULT_BLOCK_Q, fa.DEFAULT_BLOCK_K)
-        row = dict(
-            shape=list(shape),
-            tiles=[fa._fit_block(s, fa.DEFAULT_BLOCK_Q),
-                   fa._fit_block(s, fa.DEFAULT_BLOCK_K)],
-            max_abs_err=e_out, lse_max_abs_err=e_lse,
-            ms=_ms(lambda: fa.flash_attention_fwd(q, k, v)),
-            plain_ms=_ms(lambda: fa.flash_attention_reference(q, k, v),
-                         iters=3, warmup=1),
-            library_ms=_ms(lambda: F.scaled_dot_product_attention(
-                q, k, v, is_causal=True)))
-        row["bound_ms"], row["bound_by"] = _flash_bound(*shape)
-        print(f"[kernel] {json.dumps(row)}")
-        rows[shape] = row
-    # Tile sweep at the main shape (the default takes the largest tiles).
-    q, k, v = _qkv_views(gen, 2, 16, 4096, 128)
-    sweep = {f"{bq}x{bk}": _ms(lambda: fa.flash_attention_fwd(
-        q, k, v, None, bq, bk)) for bq in fa.KERNEL_TILES
-        for bk in fa.KERNEL_TILES}
-    print(f"[kernel] tile sweep at (2, 16, 4096, 128), ms: "
-          f"{json.dumps(sweep)}")
-    return rows[(2, 16, 4096, 128)]
+    # After the launches above, which set each head dim's dynamic shared
+    # memory.
+    attrs = _kernel_attributes("flash_fwd", "flash_fwd_attributes", "kernel",
+                               {(d,): (d,) for d in fa.KERNEL_HEAD_DIMS})
+    return dict(rows[FWD_MAIN], max_abs_err=max(e for e, _ in errs),
+                lse_max_abs_err=max(e for _, e in errs),
+                attributes=attrs[(FWD_MAIN[3],)],
+                train_shape=rows[FWD_TRAIN])
 
 
 def phase_forward(cfg, params, gen):
@@ -426,32 +489,6 @@ def _check_backward(shape, q, k, v, out, lse, g, delta, scale, grads):
     return errs
 
 
-def _bwd_attributes():
-    """{(head_dim, "dq" or "dkdv"): attributes} of the backward kernels, as
-    cudaFuncGetAttributes reads them after their launches: registers a
-    thread at launch (before setmaxnreg), static shared memory a block,
-    spilled bytes a thread, the most threads a block may have, and the
-    dynamic shared memory a block was given."""
-    import ctypes
-    lib = _build.load("flash_bwd")
-    fn = lib.flash_bwd_attributes
-    fn.argtypes = [ctypes.c_int, ctypes.c_int, ctypes.POINTER(ctypes.c_int)]
-    keys = ("launch_registers", "static_smem_bytes", "local_bytes",
-            "max_threads_per_block", "dynamic_smem_bytes")
-    found = {}
-    for d in fa.KERNEL_HEAD_DIMS:
-        for kernel in ("dq", "dkdv"):
-            out = (ctypes.c_int * len(keys))()
-            _build.check(lib, fn(d, int(kernel == "dq"), out),
-                         "flash_bwd_attributes")
-            found[(d, kernel)] = dict(zip(keys, out))
-            print(f"[backward] flash_bwd<{d},{kernel}> attributes: "
-                  f"{json.dumps(found[(d, kernel)])}")
-    _require(all(a["local_bytes"] == 0 for a in found.values()),
-             "a backward kernel spills to local memory")
-    return found
-
-
 def phase_backward(gen):
     rows = {}
     for shape in BWD_SHAPES:
@@ -480,7 +517,10 @@ def phase_backward(gen):
         del q, k, v, out, lse, g, delta, grads
     _check_backward_through_autograd(gen)
     # After the launches above, which set each kernel's dynamic shared memory.
-    attrs = _bwd_attributes()
+    attrs = _kernel_attributes(
+        "flash_bwd", "flash_bwd_attributes", "backward",
+        {(d, kernel): (d, int(kernel == "dq")) for d in fa.KERNEL_HEAD_DIMS
+         for kernel in ("dq", "dkdv")})
     d = BWD_SHAPES[0][3]
     return dict(rows[BWD_SHAPES[0]], attributes={
         k: attrs[(d, k)] for k in ("dq", "dkdv")})
@@ -759,7 +799,11 @@ def main(argv=None) -> int:
                               "train": train["flash_fwd"]},
          "max_abs_err": krow["max_abs_err"], "ms": krow["ms"],
          "plain_ms": krow["plain_ms"], "bound_ms": krow["bound_ms"],
-         "bound_by": krow["bound_by"], "library_ms": krow["library_ms"]},
+         "bound_by": krow["bound_by"], "library_ms": krow["library_ms"],
+         "library_call": "F.scaled_dot_product_attention(is_causal=True)",
+         "attributes": krow["attributes"],
+         "train_shape": {n: krow["train_shape"][n] for n in (
+             "shape", "ms", "bound_ms", "bound_by", "library_ms")}},
         *({"name": f"flash_{k}", "route": "cuda",
            "source": "ray_tpu_torch/ops/csrc/flash_bwd.cu",
            "replaces": f"ray_tpu/ops/flash_attention.py:{line}",

@@ -73,29 +73,20 @@
 //
 // Inputs may be strided views (the model hands it slices of its fused qkv
 // projection, and dO in [B, S, H, D] order): the tensor maps are built per
-// call from each view's strides, which must be multiples of 16 bytes, with
-// a contiguous head dimension.
+// call from each view's strides, which must be positive multiples of 16
+// bytes, with a contiguous head dimension.
+//
+// The work split (warpgroups, register split, block order and grouping),
+// the register-A products both kernels share with the forward (S from
+// resident fragments, the second product through the transpose bit) and
+// exp2 live in flash_sm90.cuh; flash_fwd.cu is built on dq's skeleton.
 
 #include "flash_sm90.cuh"
 
 namespace {
 
-// 2^x in one MUFU instruction (results below 2^-126 flush to zero, far
-// below the bf16 rounding of P and dS), without exp2f's range handling,
-// which lengthened the exposed elementwise work (PERF.md).
-__device__ __forceinline__ float ex2_ftz(float x) {
-  float y;
-  asm("ex2.approx.ftz.f32 %0, %1;\n" : "=f"(y) : "f"(x));
-  return y;
-}
-
-constexpr int WG_ROWS = 64;                        // rows a consumer warpgroup owns
-constexpr int CONSUMERS = 2;                       // consumer warpgroups a block
-constexpr int BLOCK_ROWS = WG_ROWS * CONSUMERS;    // resident rows of a block
-constexpr int STREAM_ROWS = 64;                    // rows of a streamed tile
-constexpr int THREADS = 128 * (1 + CONSUMERS);     // producer warpgroup first
-constexpr int STAGES = 3;                          // depth of the streamed ring
-constexpr int PRODUCER_REGS = 24, CONSUMER_REGS = 240;
+constexpr int STREAM_ROWS = 64;  // rows of a streamed tile
+constexpr int STAGES = 3;        // depth of the streamed ring
 
 // Shared memory in bytes: two resident tiles, STAGES pairs of streamed
 // tiles, STAGES pairs of streamed lse/delta rows (dk/dv), then the
@@ -114,10 +105,9 @@ struct Smem {
   static constexpr int BYTES = BARS + (2 * STAGES + 1) * 8 + 1024;  // + alignment slack
 };
 
-// s[64 x 64] = A B^T over the head dim: A is this warpgroup's 64 rows of a
-// resident tile (descriptor `da`), B the 64-row streamed tile (`db`), both
-// K-major.  Within a 128-byte row a 16-column step is 32 bytes; every 64
-// columns the next sub-tile starts.
+// s[64 x 64] = A B^T over the head dim, as the register-A mma_rows_t of
+// flash_sm90.cuh, with A this warpgroup's 64 rows of a resident tile in
+// shared memory (descriptor `da`, K-major).
 template <int D, int A_SUB, int B_SUB>
 __device__ __forceinline__ void mma_rows_t(float (&s)[32], uint64_t da, uint64_t db) {
 #pragma unroll
@@ -125,27 +115,6 @@ __device__ __forceinline__ void mma_rows_t(float (&s)[32], uint64_t da, uint64_t
     wgmma_ss(s, desc_add(da, (kk / 4) * A_SUB + (kk % 4) * 32),
              desc_add(db, (kk / 4) * B_SUB + (kk % 4) * 32), kk > 0);
   }
-}
-
-// The same with A in registers (`a`, all D/16 k-steps of this warpgroup's
-// rows).
-template <int D, int B_SUB>
-__device__ __forceinline__ void mma_rows_t(float (&s)[32], uint32_t (&a)[D / 16][4], uint64_t db) {
-#pragma unroll
-  for (int kk = 0; kk < D / 16; ++kk)
-    wgmma_rs<0>(s, a[kk], desc_add(db, (kk / 4) * B_SUB + (kk % 4) * 32), kk > 0);
-}
-
-// acc[64 x D] += A X, A the [64 x 64] fragments `a` (k-steps of 16 along
-// the streamed rows), X the streamed [64, D] tile read MN-major (`dx`):
-// each 16-row step is 16 * 128 bytes on, each 64-column block a sub-tile.
-template <int D, int X_SUB>
-__device__ __forceinline__ void mma_frag_x(float (&acc)[D / SW][32], uint32_t (&a)[4][4],
-                                           uint64_t dx) {
-#pragma unroll
-  for (int kk = 0; kk < 4; ++kk)
-#pragma unroll
-    for (int c = 0; c < D / SW; ++c) wgmma_rs<1>(acc[c], a[kk], desc_add(dx, c * X_SUB + kk * 2048), 1);
 }
 
 // DQ: dq block.  Resident (res1, res2) = (Q, dO), streamed (str1, str2) =
@@ -169,18 +138,12 @@ __global__ void __launch_bounds__(THREADS, 1)
   uint64_t* empty = full + STAGES;
   uint64_t* resident = empty + STAGES;
 
-  // Block order: (batch, head) pairs in groups of `group`, whose blocks
-  // run together so that the tiles they all stream stay in L2; within a
-  // group, longest first (for dq the last q tiles, for dk/dv the first k/v
-  // tiles), so that short blocks fill the tail.
-  const int n_tiles = (S + BLOCK_ROWS - 1) / BLOCK_ROWS;
-  const int n_bh = gridDim.x / n_tiles;
-  const int g0 = blockIdx.x / (group * n_tiles) * group;
-  const int g_size = min(group, n_bh - g0);
-  const int in_group = blockIdx.x - g0 * n_tiles;
-  const int rank = in_group / g_size;
-  const int bh = g0 + in_group % g_size, b = bh / H, h = bh % H;
-  const int r0 = (DQ ? n_tiles - 1 - rank : rank) * BLOCK_ROWS;
+  // Longest blocks first: for dq the last q tiles, for dk/dv the first
+  // k/v tiles.
+  const int n_tiles = block_tiles(S);
+  const BlockPlace place = block_place(n_tiles, group);
+  const int bh = place.bh, b = bh / H, h = bh % H;
+  const int r0 = (DQ ? n_tiles - 1 - place.rank : place.rank) * BLOCK_ROWS;
   // The streamed tiles this block's rows see.
   const int t_begin = DQ ? 0 : r0 / STREAM_ROWS;
   const int t_end = DQ ? min(r0 + BLOCK_ROWS, S) / STREAM_ROWS : S / STREAM_ROWS;
@@ -375,12 +338,6 @@ __global__ void __launch_bounds__(THREADS, 1)
   }
 }
 
-// Element strides (batch, head, row) of one [B, H, S, D] view.
-struct View {
-  const void* ptr;
-  long long sb, sh, ss;
-};
-
 // Build the four tensor maps (resident tiles of 128 rows, streamed of 64)
 // and launch; cudaErrorInvalidValue if a map is refused.
 template <int D, bool DQ>
@@ -390,8 +347,7 @@ cudaError_t launch(View r1, View r2, View s1, View s2, const void* lse, const vo
   CUtensorMap m[4];
   const View views[4] = {r1, r2, s1, s2};
   for (int i = 0; i < 4; ++i) {
-    if (!make_tile_map(&m[i], views[i].ptr, B, H, S, D, views[i].sb, views[i].sh, views[i].ss,
-                       i < 2 ? BLOCK_ROWS : STREAM_ROWS))
+    if (!make_tile_map(&m[i], views[i], B, H, S, D, i < 2 ? BLOCK_ROWS : STREAM_ROWS))
       return cudaErrorInvalidValue;
   }
   constexpr int smem = Smem<D>::BYTES;
@@ -399,11 +355,10 @@ cudaError_t launch(View r1, View r2, View s1, View s2, const void* lse, const vo
   cudaError_t err =
       cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (err != cudaSuccess) return err;
-  // Pairs a group: their four [S, D] tensors in about 16 MB of the 50 MB L2.
-  const long long fit = (16LL << 20) / (4LL * S * D * sizeof(bf16));
-  int group = fit < 1 ? 1 : (fit > B * H ? B * H : static_cast<int>(fit));
-  const int n_tiles = (S + BLOCK_ROWS - 1) / BLOCK_ROWS;
-  kern<<<B * H * n_tiles, THREADS, smem, stream>>>(
+  // Grouped by the four [S, D] tensors of each pair (the streamed two and
+  // the resident two).
+  const int group = l2_group(B * H, S, D, 4);
+  kern<<<B * H * block_tiles(S), THREADS, smem, stream>>>(
       m[0], m[1], m[2], m[3], static_cast<const float*>(lse), static_cast<const float*>(delta),
       static_cast<bf16*>(out1), static_cast<bf16*>(out2), H, S, scale, ob, oh, os, group);
   return cudaGetLastError();

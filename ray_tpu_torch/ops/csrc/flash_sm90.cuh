@@ -1,7 +1,9 @@
-// Hopper (sm_90a) building blocks of the flash-attention backward kernels
-// (flash_bwd.cu): mbarriers, TMA tile loads, wgmma descriptors and
-// instructions, register reallocation, and the host-side construction of
-// TMA tensor maps.
+// Hopper (sm_90a) building blocks of the flash-attention kernels
+// (flash_fwd.cu, flash_bwd.cu): the work split they share (two consumer
+// warpgroups of 64 rows, a producer warpgroup, 128-row blocks grouped by
+// (batch, head) and ordered longest first), mbarriers, TMA tile loads,
+// wgmma descriptors and instructions, the two products every kernel runs,
+// register reallocation, and the host-side construction of TMA tensor maps.
 //
 // Shared-memory tiles are bf16 with TMA's 128-byte swizzle: a [rows, D]
 // tile is stored as D/64 sub-tiles of [rows, 64] (one 128-byte row each),
@@ -19,6 +21,43 @@
 #include "flash_common.cuh"
 
 namespace {
+
+// ---------------------------------------------------------------------------
+// The work split
+
+constexpr int WG_ROWS = 64;                        // rows a consumer warpgroup owns
+constexpr int CONSUMERS = 2;                       // consumer warpgroups a block
+constexpr int BLOCK_ROWS = WG_ROWS * CONSUMERS;    // resident rows of a block
+constexpr int THREADS = 128 * (1 + CONSUMERS);     // producer warpgroup first
+constexpr int PRODUCER_REGS = 24, CONSUMER_REGS = 240;
+
+// The (batch, head) pair and the rank of this block's 128-row tile among
+// the pair's n_tiles, rank 0 first.  Pairs go in groups of `group`, whose
+// blocks run together so that the tiles they all stream stay in L2; within
+// a group the ranks go in turn, so that the kernel can run its longest
+// tiles first and let short blocks fill the tail.
+struct BlockPlace {
+  int bh, rank;
+};
+
+__device__ __forceinline__ BlockPlace block_place(int n_tiles, int group) {
+  const int n_bh = gridDim.x / n_tiles;
+  const int g0 = blockIdx.x / (group * n_tiles) * group;
+  const int g_size = min(group, n_bh - g0);
+  const int in_group = blockIdx.x - g0 * n_tiles;
+  return {g0 + in_group % g_size, in_group / g_size};
+}
+
+// Host: the pairs of a group, so that `tensors` [S, D] bf16 tensors of
+// each (those it streams and those it keeps or writes) fill about 16 MB of
+// the 50 MB L2 together.
+inline int l2_group(int n_bh, int S, int D, int tensors) {
+  const long long fit = (16LL << 20) / (static_cast<long long>(tensors) * S * D * sizeof(bf16));
+  return fit < 1 ? 1 : (fit > n_bh ? n_bh : static_cast<int>(fit));
+}
+
+// 128-row blocks of a sequence of S rows, the last maybe ragged.
+__host__ __device__ inline int block_tiles(int S) { return (S + BLOCK_ROWS - 1) / BLOCK_ROWS; }
 
 // ---------------------------------------------------------------------------
 // mbarriers
@@ -98,6 +137,15 @@ __device__ __forceinline__ void reg_alloc() {
 template <int R>
 __device__ __forceinline__ void reg_dealloc() {
   asm volatile("setmaxnreg.dec.sync.aligned.u32 %0;\n" ::"n"(R));
+}
+
+// 2^x in one MUFU instruction (results below 2^-126 flush to zero, far
+// below the bf16 rounding of P), without exp2f's range handling, which
+// lengthened the exposed elementwise work (PERF.md).
+__device__ __forceinline__ float ex2_ftz(float x) {
+  float y;
+  asm("ex2.approx.ftz.f32 %0, %1;\n" : "=f"(y) : "f"(x));
+  return y;
 }
 
 // ---------------------------------------------------------------------------
@@ -215,6 +263,29 @@ __device__ __forceinline__ void load_a_frags(uint32_t (&a)[D / 16][4], const uns
   }
 }
 
+// s[64 x 64] = A B^T over the head dim: A in registers (`a`, all D/16
+// k-steps of this warpgroup's rows, see load_a_frags), B the 64-row
+// streamed tile (`db`), K-major.  Within a 128-byte row a 16-column step
+// is 32 bytes; every 64 columns the next sub-tile (B_SUB bytes on) starts.
+template <int D, int B_SUB>
+__device__ __forceinline__ void mma_rows_t(float (&s)[32], uint32_t (&a)[D / 16][4], uint64_t db) {
+#pragma unroll
+  for (int kk = 0; kk < D / 16; ++kk)
+    wgmma_rs<0>(s, a[kk], desc_add(db, (kk / 4) * B_SUB + (kk % 4) * 32), kk > 0);
+}
+
+// acc[64 x D] += A X, A the [64 x 64] fragments `a` (k-steps of 16 along
+// the streamed rows), X the streamed [64, D] tile read MN-major (`dx`):
+// each 16-row step is 16 * 128 bytes on, each 64-column block a sub-tile.
+template <int D, int X_SUB>
+__device__ __forceinline__ void mma_frag_x(float (&acc)[D / SW][32], uint32_t (&a)[4][4],
+                                           uint64_t dx) {
+#pragma unroll
+  for (int kk = 0; kk < 4; ++kk)
+#pragma unroll
+    for (int c = 0; c < D / SW; ++c) wgmma_rs<1>(acc[c], a[kk], desc_add(dx, c * X_SUB + kk * 2048), 1);
+}
+
 // The 1024-byte aligned start of dynamic shared memory (the launch asks
 // for 1024 bytes more than the layout needs).
 __device__ __forceinline__ unsigned char* smem_aligned(unsigned char* raw) {
@@ -249,16 +320,21 @@ EncodeTiledFn encode_tiled() {
   return fn;
 }
 
-// Tensor map of a bf16 [B, H, S, D] view with element strides (sb, sh, ss)
-// and a contiguous head dimension, as dims (D, S, H, B), loaded in boxes
-// of [rows, 64] with the 128-byte swizzle.  Rows past S read as zeros.
-bool make_tile_map(CUtensorMap* map, const void* base, int B, int H, int S, int D,
-                   long long sb, long long sh, long long ss, int rows) {
+// Element strides (batch, head, row) of one [B, H, S, D] view.
+struct View {
+  const void* ptr;
+  long long sb, sh, ss;
+};
+
+// Tensor map of a bf16 [B, H, S, D] view with a contiguous head
+// dimension, as dims (D, S, H, B), loaded in boxes of [rows, 64] with the
+// 128-byte swizzle.  Rows past S read as zeros.
+bool make_tile_map(CUtensorMap* map, const View& view, int B, int H, int S, int D, int rows) {
   const EncodeTiledFn encode = encode_tiled();
   if (encode == nullptr) return false;
   const cuuint64_t dims[4] = {static_cast<cuuint64_t>(D), static_cast<cuuint64_t>(S),
                               static_cast<cuuint64_t>(H), static_cast<cuuint64_t>(B)};
-  const long long el[3] = {ss, sh, sb};
+  const long long el[3] = {view.ss, view.sh, view.sb};
   cuuint64_t strides[3];
   cuuint64_t span = static_cast<cuuint64_t>(D) * sizeof(bf16);
   for (int i = 0; i < 3; ++i) {
@@ -271,7 +347,7 @@ bool make_tile_map(CUtensorMap* map, const void* base, int B, int H, int S, int 
   }
   const cuuint32_t box[4] = {SW, static_cast<cuuint32_t>(rows), 1, 1};
   const cuuint32_t estride[4] = {1, 1, 1, 1};
-  return encode(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4, const_cast<void*>(base), dims,
+  return encode(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4, const_cast<void*>(view.ptr), dims,
                 strides, box, estride, CU_TENSOR_MAP_INTERLEAVE_NONE,
                 CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
                 CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;

@@ -27,14 +27,16 @@ from ray_tpu_torch.ops import _build
 
 DEFAULT_BLOCK_Q = 512
 DEFAULT_BLOCK_K = 512
-# The forward is compiled for q and k/v tiles of 64 or 128 rows and head
-# dims 64 and 128, in bf16 (the mma.sync instruction it uses is bf16).
+# The gate on block_q and block_k, kept from the reference's signature:
+# each fits to a tile of 64 or 128 rows that divides seq_len.  The kernels
+# pick their own tiles (128 query rows a block, a ragged last one where
+# 128 does not divide seq_len), for head dims 64 and 128, in bf16 (the
+# wgmma instructions they use are bf16).
 KERNEL_TILES = (64, 128)
 KERNEL_HEAD_DIMS = (64, 128)
 KERNEL_DTYPES = (torch.bfloat16,)
 # The backward's streamed tile (csrc/flash_bwd.cu), which every sequence
-# supports() takes divides; its resident 128-row tiles take a ragged last
-# tile where 128 does not divide the sequence.
+# supports() takes divides.
 BWD_TILE = 64
 
 # Kernel launches since the counts were last set to 0, by kernel (only the
@@ -49,9 +51,10 @@ def reset_launches() -> None:
 
 
 def _fit_block(seq_len: int, block: int) -> int:
-    """The kernel tile for a requested block: the largest tile <= `block`,
-    halving from 128 down to 64, that divides seq_len.  Returns 64 when
-    none divides (supports() then refuses the shape)."""
+    """The tile a requested block fits to, for the gate of supports(): the
+    largest tile <= `block`, halving from 128 down to 64, that divides
+    seq_len.  Returns 64 when none divides (supports() then refuses the
+    shape)."""
     b = min(block, KERNEL_TILES[-1])
     while b > KERNEL_TILES[0] and seq_len % b != 0:
         b //= 2
@@ -153,20 +156,25 @@ def _bind(lib_name: str, fn_name: str, n_ptrs: int, n_ints: int,
     return lib, fn
 
 
-def _fits_kernel_layout(t, tma: bool = False) -> bool:
-    # cp.async (forward) and TMA (backward) move 16-byte rows: 8 bf16
-    # elements, 16-byte aligned; TMA also steps every dimension longer than
-    # one by a positive stride.
+def _fits_kernel_layout(t) -> bool:
+    # TMA moves 16-byte rows (8 bf16 elements, 16-byte aligned) and steps
+    # every dimension longer than one by a positive stride.
     return (t.stride(-1) == 1 and t.data_ptr() % 16 == 0
-            and all(st % 8 == 0 and (st > 0 or n == 1 or not tma)
+            and all(st % 8 == 0 and (st > 0 or n == 1)
                     for st, n in zip(t.stride()[:3], t.shape[:3])))
 
 
-def _check_kernel_inputs(block_q, block_k, tma=False, **tensors):
+def _kernel_layout(t):
+    """t itself when the kernels' TMA loads take its layout, else a
+    contiguous copy (an expanded input has zero strides, autograd may hand
+    over odd ones)."""
+    return t if _fits_kernel_layout(t) else t.contiguous()
+
+
+def _check_kernel_inputs(block_q, block_k, **tensors):
     """Raise unless the named [B, H, S, D] tensors lie on one CUDA device,
     share one shape and dtype that the kernels take, and each has a
-    contiguous head dim and 16-byte aligned rows (and, for the TMA loads
-    of the backward, positive strides)."""
+    contiguous head dim, 16-byte aligned rows and positive strides."""
     ts = list(tensors.values())
     q = ts[0]
     if not all(t.is_cuda and t.device == q.device for t in ts):
@@ -182,10 +190,9 @@ def _check_kernel_inputs(block_q, block_k, tma=False, **tensors):
             f"the Hopper flash kernels do not take seq_len={s}, "
             f"head_dim={d}, dtype={q.dtype} (see supports())")
     for name, t in tensors.items():
-        if not _fits_kernel_layout(t, tma):
+        if not _fits_kernel_layout(t):
             raise ValueError(f"{name} needs a contiguous head dim and "
-                             f"16-byte aligned rows"
-                             f"{', with positive strides' if tma else ''}, "
+                             f"16-byte aligned rows, with positive strides, "
                              f"got strides {t.stride()}")
 
 
@@ -226,20 +233,22 @@ def flash_attention_fwd(q, k, v, scale=None, block_q: int = DEFAULT_BLOCK_Q,
     float32 [B, H, S]).
 
     On CUDA tensors this launches the Hopper kernel (raising on a shape or
-    dtype it does not take, see supports()).  `out` is then a [B, H, S, D]
-    view of a [B, S, H, D] buffer, so `out.transpose(1, 2)` is contiguous
-    (the model's layout).  On CPU tensors it runs the plain version."""
+    dtype it does not take, see supports()); a q, k or v whose strides its
+    TMA loads do not take (e.g. expanded, with zero strides) is first
+    copied into a contiguous layout.  `out` is then a [B, H, S, D] view of
+    a [B, S, H, D] buffer, so `out.transpose(1, 2)` is contiguous (the
+    model's layout).  On CPU tensors it runs the plain version."""
     scale = scale or q.shape[-1] ** -0.5
     if not q.is_cuda:
         return flash_attention_reference(q, k, v, scale)
+    q, k, v = (_kernel_layout(t) for t in (q, k, v))
     _check_kernel_inputs(block_q, block_k, q=q, k=k, v=v)
     b, h, s, d = q.shape
     out = _empty_like_out(q)
     lse = torch.empty((b, h, s), dtype=torch.float32, device=q.device)
-    lib, fn = _bind("flash_fwd", "flash_fwd_bf16", 5, 6, 12)
+    lib, fn = _bind("flash_fwd", "flash_fwd_bf16", 5, 4, 12)
     _launch(lib, fn, "flash_fwd", q, k, v, out, lse, b, h, s, d,
-            _fit_block(s, block_q), _fit_block(s, block_k), float(scale),
-            *_strides(q, k, v, out))
+            float(scale), *_strides(q, k, v, out))
     return out, lse
 
 
@@ -250,8 +259,7 @@ def flash_dq(q, k, v, g, lse, delta, scale):
     CPU: its plain version."""
     if not q.is_cuda:
         return flash_dq_reference(q, k, v, g, lse, delta, scale)
-    _check_kernel_inputs(BWD_TILE, BWD_TILE, tma=True, q=q, k=k, v=v,
-                         g=g)
+    _check_kernel_inputs(BWD_TILE, BWD_TILE, q=q, k=k, v=v, g=g)
     _check_rowwise(lse, delta, q)
     b, h, s, d = q.shape
     dq = _empty_like_out(q)
@@ -267,8 +275,7 @@ def flash_dkdv(q, k, v, g, lse, delta, scale):
     kernel (g as for flash_dq); CPU: its plain version."""
     if not q.is_cuda:
         return flash_dkdv_reference(q, k, v, g, lse, delta, scale)
-    _check_kernel_inputs(BWD_TILE, BWD_TILE, tma=True, q=q, k=k, v=v,
-                         g=g)
+    _check_kernel_inputs(BWD_TILE, BWD_TILE, q=q, k=k, v=v, g=g)
     _check_rowwise(lse, delta, q)
     b, h, s, d = q.shape
     dk, dv = _empty_like_out(k), _empty_like_out(v)
@@ -284,12 +291,13 @@ def flash_attention_bwd(q, k, v, out, lse, g, scale=None):
 
     delta = rowsum(dO * out) is taken in f32 with torch ops, outside the
     kernels, as the reference does.  On CUDA this launches the dq kernel,
-    then the dk/dv kernel; a `g` whose strides the kernels do not take
-    (autograd may hand over zero or odd strides) is first copied into a
-    contiguous layout.  On CPU it runs their plain versions."""
+    then the dk/dv kernel; an input whose strides the kernels do not take
+    (autograd may hand over a `g` with zero or odd strides, and the
+    forward takes an expanded q, k or v) is first copied into a contiguous
+    layout.  On CPU it runs their plain versions."""
     scale = scale or q.shape[-1] ** -0.5
-    if q.is_cuda and not _fits_kernel_layout(g, tma=True):
-        g = g.contiguous()
+    if q.is_cuda:
+        q, k, v, g = (_kernel_layout(t) for t in (q, k, v, g))
     delta = _delta(out, g)
     dq = flash_dq(q, k, v, g, lse, delta, scale)
     return (dq, *flash_dkdv(q, k, v, g, lse, delta, scale))
